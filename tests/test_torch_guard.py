@@ -68,9 +68,54 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
     """A wrapper takes its plain twin only for a CPU tensor; the launch
     checks refuse anything else that is not on the card
     (tests/test_torch_cuda.py checks the card's side)."""
+    from tol_tpu_torch.ops import chainkern as ch
     from tol_tpu_torch.ops import crkern as ck
     with pytest.raises(ValueError, match="CUDA"):
         ck._check("k", [torch.zeros(11, 11, 4)], [])
+    with pytest.raises(ValueError, match="CUDA"):
+        ch._check("k", [(torch.zeros(3, 11, 11, 4), (3, 11, 11, 4))])
+    # a tensor that is neither on the CPU nor on the card goes to the launch
+    # checks and is refused there; no wrapper takes its twin for it
+    z = lambda *s: torch.zeros(*s, device="meta")
+    slab = z(11, 11, 4)
+    for call in (
+            lambda: ck.crp_factor_level(slab, slab, slab, slab),
+            lambda: ck.crp_factor_fwd_level(slab, slab, slab, slab,
+                                            z(11, 12, 4), z(11, 12, 4)),
+            lambda: ch._factor_eliminate_batched(z(3, 11, 11, 4),
+                                                 z(3, 11, 11, 4),
+                                                 z(3, 11, 14, 4)),
+            lambda: ch._rhs_forward_batched(z(3, 11, 11, 4), z(3, 11, 11, 4),
+                                            z(3, 11, 14, 4), z(3, 11, 1, 4)),
+            lambda: ch._back_substitute_batched(z(3, 11, 15, 4),
+                                                z(3, 11, 11, 4), z(15, 1, 4))):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+    assert all(k.launches == 0 for k in ck.KERNELS + ch.KERNELS)
+
+
+@pytest.mark.parametrize("kernel", ["chain_factor", "chain_rhs_forward",
+                                    "chain_back_sub"])
+def test_chain_wrappers_take_the_twin_for_cpu_tensors_only(kernel):
+    """A CPU tensor (any float type) runs the plain twin and counts no
+    launch."""
+    from tol_tpu_torch.ops import chainkern as ch
+    gen = torch.Generator().manual_seed(0)
+    t = lambda *s: 0.1 * torch.rand(*s, generator=gen, dtype=torch.float64)
+    spd = t(3, 11, 11, 2) + 4.0 * torch.eye(
+        11, dtype=torch.float64)[None, :, :, None]
+    before = [k.launches for k in ch.KERNELS]
+    out = {
+        "chain_factor": lambda: ch._factor_eliminate_batched(
+            spd, t(3, 11, 11, 2), t(3, 11, 14, 2)),
+        "chain_rhs_forward": lambda: ch._rhs_forward_batched(
+            spd, t(3, 11, 11, 2), t(3, 11, 14, 2), t(3, 11, 1, 2)),
+        "chain_back_sub": lambda: ch._back_substitute_batched(
+            t(3, 11, 15, 2), spd, t(15, 1, 2)),
+    }[kernel]()
+    out = out if isinstance(out, tuple) else (out,)
+    assert all(o.device.type == "cpu" and torch.isfinite(o).all() for o in out)
+    assert [k.launches for k in ch.KERNELS] == before
 
 
 def test_chip_smoke_fails_without_a_gpu(tmp_path):

@@ -1,6 +1,7 @@
 """tol_tpu_torch's problem layers against tol_tpu's on the same inputs
-(float64): .param readers, dynamics, wind models 0/1, the S10 seed and NLP
-residuals, and the canonical (scaled) form.
+(float64): .param readers, dynamics, wind models 0/1/2/4/5, the S10 seed
+and NLP residuals, and the canonical (scaled) form.  G7 has its own file,
+tests/test_torch_g7.py.
 
 Both packages evaluate the same formulas; where the arithmetic order is the
 same the results agree bitwise, elsewhere to a few ulps (TOL, relative to
@@ -92,12 +93,17 @@ def test_state_derivatives_match():
         (jdyn.NUM_VARS, jdyn.NUM_STATES, jdyn.IDX_T)
 
 
-@pytest.mark.parametrize("model", [0, 1])
+@pytest.mark.parametrize("model", [0, 1, 2, 4, 5])
 def test_wind_and_gradient_match(model):
     rng = np.random.default_rng(1)
     p = rng.normal(scale=50.0, size=(6, 3))
-    cfg_j = jwind.WindConfig(model=model, vref=3.1, href=7.0)
-    cfg_t = twind.WindConfig(model=model, vref=3.1, href=7.0)
+    # thermals and the vortex centred near the query points (field ENU =
+    # local NED + datum), so the Gaussians and 1/r terms are not flat
+    kw = dict(model=model, vref=3.1, href=7.0, xth=17410.0, yth=25790.0,
+              vcore=2.5, rlift=45.0, xth2=17380.0, yth2=25830.0, vcore2=-1.5,
+              rlift2=60.0)
+    cfg_j = jwind.WindConfig(**kw)
+    cfg_t = twind.WindConfig(**kw)
     wj, gj = jax.vmap(lambda q: jwind.wind_with_gradient_ned(cfg_j, q))(
         jnp.asarray(p))
     wt, gt = twind.wind_with_gradient_ned(cfg_t, torch.tensor(p))
@@ -110,8 +116,22 @@ def test_wind_and_gradient_match(model):
 
 @pytest.mark.parametrize("model", [2, 3, 4, 5])
 def test_unported_wind_models_raise(model):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        twind.wind_ned(twind.WindConfig(model=model), torch.zeros(3))
+    """Only the gridded storm field (model 3) is still unported; the others
+    evaluate, and the vortex is still at its core."""
+    cfg = twind.WindConfig(model=model, xth=17400.0, yth=25800.0)
+    if model == 3:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            twind.wind_ned(cfg, torch.zeros(3))
+        return
+    w, g = twind.wind_with_gradient_ned(cfg, torch.zeros(2, 3,
+                                                         dtype=torch.float64))
+    assert w.shape == (2, 3) and g.shape == (2, 3, 3)
+    assert torch.isfinite(w).all()
+    want = {2: [0.0, 0.0, -3.0], 4: None, 5: [0.0, 0.0, 0.0]}[model]
+    if want is not None:
+        assert w[0].tolist() == want
+    with pytest.raises(ValueError, match="unknown wind model"):
+        twind.wind_ned(twind.WindConfig(model=6), torch.zeros(3))
 
 
 def test_seed_paths_and_inversion_match():
@@ -228,8 +248,12 @@ def test_unscaled_canonical_form_matches():
 
 
 def test_g7_raises_until_its_slice():
-    with pytest.raises(NotImplementedError, match="G7"):
-        tapi.make_problem("G7", "skywalker", ts=8, device="cpu")
+    """G7's slice has come: it builds (tests/test_torch_g7.py holds it
+    against tol_tpu); a mission neither package has is refused."""
+    nlp = tapi.make_problem("G7", "skywalker", ts=8, device="cpu")
+    assert (nlp.mission, nlp.nb, int(nlp.boundary_is_ineq.sum())) == ("G7", 12, 2)
+    with pytest.raises(FileNotFoundError):
+        tapi.make_problem("S11", "tempest", ts=8, device="cpu")
 
 
 def test_wind_config_fields_match():

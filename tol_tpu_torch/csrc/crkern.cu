@@ -1,6 +1,7 @@
-// Cyclic-reduction level kernels for Hopper (sm_90a): K1-K4.
+// Cyclic-reduction level kernels for Hopper (sm_90a): K1-K5.
 //
 // They replace the Pallas TPU kernels of tol_tpu/ops/crkern.py:
+//   K5 crp_factor_level      <- crkern.py:_factor_kernel (K1 without rhs)
 //   K1 crp_factor_fwd_level  <- crkern.py:_factor_fwd_kernel
 //   K2 crp_fwd_level         <- crkern.py:_fwd_kernel
 //   K3 crp_bwd_level         <- crkern.py:_bwd_kernel
@@ -14,7 +15,8 @@
 // Fo, Fe and writes of Minv, Mhalf, Onext, S, Fe2, brF) against ~12 kFLOP
 // of fp32 arithmetic: ~2 FLOP per byte, far below the ~20 FLOP per byte at which
 // the card's fp32 units (67 TFLOP/s) would take over from its memory
-// (3.35 TB/s).  K2-K4 are lighter still.
+// (3.35 TB/s).  K2-K4 are lighter still; K5 moves 913 floats per column
+// for K1's factor arithmetic without the rhs part.
 //
 // Design: one thread per slab column (block k, lane n), in the batch-last
 // slab layout (i, j, k*B + n) of the JAX package, so the 32 threads of a
@@ -52,6 +54,18 @@ factor_fwd_level_kernel(const float* __restrict__ Mo, const float* __restrict__ 
   crk::factor_fwd_column<float>(Mo + c, Me + c, OL + c, OR + c, Fo + c, Fe + c,
                                 Minv + c, Mhalf + c, Onext + c, S + c, Fe2 + c,
                                 brF + c, L, m);
+}
+
+__global__ void __launch_bounds__(kThreads)
+factor_level_kernel(const float* __restrict__ Mo, const float* __restrict__ Me,
+                    const float* __restrict__ OL, const float* __restrict__ OR,
+                    float* __restrict__ Minv, float* __restrict__ Mhalf,
+                    float* __restrict__ Onext, float* __restrict__ S, long L) {
+  const long c = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= L) return;
+  float inv[crk::NB * crk::NB];
+  crk::factor_column<float>(Mo + c, Me + c, OL + c, OR + c, Minv + c, Mhalf + c,
+                            Onext + c, S + c, L, inv);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -99,6 +113,14 @@ int crp_factor_fwd_level(const float* Mo, const float* Me, const float* OL,
   return (int)cudaGetLastError();
 }
 
+int crp_factor_level(const float* Mo, const float* Me, const float* OL,
+                     const float* OR, float* Minv, float* Mhalf, float* Onext,
+                     float* S, long L, void* stream) {
+  factor_level_kernel<<<blocks_for(L), kThreads, 0, (cudaStream_t)stream>>>(
+      Mo, Me, OL, OR, Minv, Mhalf, Onext, S, L);
+  return (int)cudaGetLastError();
+}
+
 int crp_fwd_level(const float* Minv, const float* OL, const float* OR,
                   const float* fo, const float* fe, float* fe2, float* br,
                   long L, int m, void* stream) {
@@ -122,7 +144,7 @@ int crp_root(const float* A, const float* F, float* Rinv, float* X, long L,
   return (int)cudaGetLastError();
 }
 
-const char* crp_error_string(int code) {
+const char* kernel_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 

@@ -1,4 +1,6 @@
-// Per-column block routines of the cyclic-reduction (CR) level kernels.
+// Per-column block routines of the cyclic-reduction (CR) level kernels
+// K1-K5 (the sequential-chain kernels K6-K8 build on them in
+// chainkern_block.cuh).
 //
 // A "column" is one (block k, lane n) pair of a CR level.  Every operand is
 // a slab of shape (a, b, L) in the batch-last layout of
@@ -11,12 +13,21 @@
 // them with T = float, and a host build of this header (g++, T = double)
 // is checked against the plain PyTorch twins in tests/test_torch_ops.py.
 //
-// Arithmetic follows the Pallas kernels term by term: the Cholesky pivot
-// is the correctly rounded 1 / sqrt(s) times s (chainkern._chol_slab), the
-// inverse solves L Y = I then L^T X = Y column by column
+// Arithmetic follows the Pallas kernels term by term: the Cholesky column
+// is s over the correctly rounded sqrt of its pivot (chainkern._chol_slab),
+// the inverse solves L Y = I then L^T X = Y column by column
 // (chainkern._spd_inverse_slab), and every product sums its terms in index
 // order (chainkern._mm_slab / _mm_tn_slab, crkern._mm_nt_slab).  A
 // non-positive pivot yields NaN, which then fills that column's outputs.
+//
+// One departure, on purpose: the Pallas body scales the column by the
+// reciprocal, s * (1 / sqrt(p)); here it is the quotient s / sqrt(p), as in
+// the JAX package's plain path (smallalg.chol_unrolled).  In IEEE float32
+// the reciprocal form costs a second rounding per entry and leaves
+// L_jj != sqrt(p).  On G7's stiff endgame, where the condensed blocks carry
+// 1 / gamma ~ 2e5, that is enough to make the factorization break down at
+// about three times the primal shift, and the solve then needs nearly twice
+// the iterations (PERF.md, findings of the second slice).
 #pragma once
 
 #include <math.h>
@@ -53,53 +64,88 @@ CRK_HD void matvec(const T* __restrict__ A, long si, long sl,
   }
 }
 
-// X = A^-1 (row-major NB x NB) for the SPD block A of one slab column,
-// by the unrolled Cholesky of chainkern._spd_inverse_slab.  Only the
-// lower triangle of A is read.
+// Element (i, j) of an NB x NB block of one slab column (stride s), and of
+// the difference of two such blocks: what chol_lower factors.
 template <typename T>
-CRK_HD void spd_inverse(const T* __restrict__ A, long L, T* __restrict__ X) {
-  T Lc[NB][NB];  // Lc[j][i]: column j, row i >= j of the Cholesky factor
+struct SlabBlock {
+  const T* p;
+  long s;
+  CRK_HD T operator()(int i, int j) const { return p[(i * NB + j) * s]; }
+};
+
+template <typename T>
+struct SlabBlockDiff {
+  const T* p;
+  long s;
+  const T* q;
+  long t;
+  CRK_HD T operator()(int i, int j) const {
+    return p[(i * NB + j) * s] - q[(i * NB + j) * t];
+  }
+};
+
+// Cholesky columns of the SPD block a(i, j), by chainkern._chol_slab:
+// Lc[j][i] is row i >= j of column j (the entries above the diagonal are
+// left unset and never read).  Only the lower triangle of a is read.
+template <typename T, typename Load>
+CRK_HD void chol_lower(const Load& a, T (&Lc)[NB][NB]) {
   CRK_UNROLL
   for (int j = 0; j < NB; ++j) {
     T s[NB];
     CRK_UNROLL
-    for (int i = j; i < NB; ++i) s[i] = A[(i * NB + j) * L];
+    for (int i = j; i < NB; ++i) s[i] = a(i, j);
     CRK_UNROLL
     for (int k = 0; k < j; ++k) {
       CRK_UNROLL
       for (int i = j; i < NB; ++i) s[i] = s[i] - Lc[k][j] * Lc[k][i];
     }
-    const T d = T(1) / crk_sqrt(s[j]);
+    const T r = crk_sqrt(s[j]);  // NaN for a negative pivot
     CRK_UNROLL
-    for (int i = j; i < NB; ++i) Lc[j][i] = s[i] * d;
+    for (int i = j; i < NB; ++i) Lc[j][i] = s[i] / r;
+  }
+}
+
+// Column c of the inverse from the Cholesky columns: L y = e_c, then
+// L^T x = y (chainkern._spd_inverse_slab, one unit column).
+template <typename T>
+CRK_HD void inverse_column(const T (&Lc)[NB][NB], int c, T (&x)[NB]) {
+  T y[NB];
+  CRK_UNROLL
+  for (int i = 0; i < NB; ++i) {
+    const T e = (i == c) ? T(1) : T(0);
+    T num = e;
+    if (i > 0) {
+      T s = Lc[0][i] * y[0];
+      CRK_UNROLL
+      for (int k = 1; k < i; ++k) s = s + Lc[k][i] * y[k];
+      num = e - s;
+    }
+    y[i] = num / Lc[i][i];
   }
   CRK_UNROLL
+  for (int i = NB - 1; i >= 0; --i) {
+    T num = y[i];
+    if (i < NB - 1) {
+      T s = Lc[i][i + 1] * x[i + 1];
+      CRK_UNROLL
+      for (int k = i + 2; k < NB; ++k) s = s + Lc[i][k] * x[k];
+      num = y[i] - s;
+    }
+    x[i] = num / Lc[i][i];
+  }
+}
+
+// X = A^-1 (row-major NB x NB) for the SPD block A of one slab column,
+// by the unrolled Cholesky of chainkern._spd_inverse_slab.  Only the
+// lower triangle of A is read.
+template <typename T>
+CRK_HD void spd_inverse(const T* __restrict__ A, long L, T* __restrict__ X) {
+  T Lc[NB][NB];
+  chol_lower(SlabBlock<T>{A, L}, Lc);
+  CRK_UNROLL
   for (int c = 0; c < NB; ++c) {
-    T y[NB];
-    CRK_UNROLL
-    for (int i = 0; i < NB; ++i) {
-      const T e = (i == c) ? T(1) : T(0);
-      T num = e;
-      if (i > 0) {
-        T s = Lc[0][i] * y[0];
-        CRK_UNROLL
-        for (int k = 1; k < i; ++k) s = s + Lc[k][i] * y[k];
-        num = e - s;
-      }
-      y[i] = num / Lc[i][i];
-    }
     T x[NB];
-    CRK_UNROLL
-    for (int i = NB - 1; i >= 0; --i) {
-      T num = y[i];
-      if (i < NB - 1) {
-        T s = Lc[i][i + 1] * x[i + 1];
-        CRK_UNROLL
-        for (int k = i + 2; k < NB; ++k) s = s + Lc[i][k] * x[k];
-        num = y[i] - s;
-      }
-      x[i] = num / Lc[i][i];
-    }
+    inverse_column(Lc, c, x);
     CRK_UNROLL
     for (int i = 0; i < NB; ++i) X[i * NB + c] = x[i];
   }
@@ -108,19 +154,16 @@ CRK_HD void spd_inverse(const T* __restrict__ A, long L, T* __restrict__ X) {
 // Slab strides of an NB x w block: row i, column j at (i * w + j) * L.
 #define CRK_AT(p, i, j, w) (p)[((long)(i) * (w) + (j)) * L]
 
-// K1 — one CR level, factor fused with the forward elimination of m rhs
-// columns (crkern._factor_fwd_kernel):
+// K5 — one CR level without rhs (crkern._factor_kernel):
 //   Minv = Mo^-1, Mhalf = Me - OL Minv OL^T, Onext = -OL Minv OR,
-//   S = OR^T Minv OR, g = Minv Fo, Fe2 = Fe - OL g, brF = OR^T g.
+//   S = OR^T Minv OR.
+// Minv is also left in the caller's row-major array, for K1's rhs part.
 template <typename T>
-CRK_HD void factor_fwd_column(const T* __restrict__ Mo, const T* __restrict__ Me,
-                              const T* __restrict__ OL, const T* __restrict__ OR,
-                              const T* __restrict__ Fo, const T* __restrict__ Fe,
-                              T* __restrict__ Minv_o, T* __restrict__ Mhalf_o,
-                              T* __restrict__ Onext_o, T* __restrict__ S_o,
-                              T* __restrict__ Fe2_o, T* __restrict__ brF_o,
-                              long L, int m) {
-  T Minv[NB * NB];
+CRK_HD void factor_column(const T* __restrict__ Mo, const T* __restrict__ Me,
+                          const T* __restrict__ OL, const T* __restrict__ OR,
+                          T* __restrict__ Minv_o, T* __restrict__ Mhalf_o,
+                          T* __restrict__ Onext_o, T* __restrict__ S_o, long L,
+                          T* __restrict__ Minv) {
   spd_inverse(Mo, L, Minv);
   CRK_UNROLL
   for (int e = 0; e < NB * NB; ++e) Minv_o[e * L] = Minv[e];
@@ -141,6 +184,22 @@ CRK_HD void factor_fwd_column(const T* __restrict__ Mo, const T* __restrict__ Me
     for (int i = 0; i < NB; ++i)
       CRK_AT(Mhalf_o, i, q, NB) = CRK_AT(Me, i, q, NB) - u[i];
   }
+}
+
+// K1 — one CR level, factor fused with the forward elimination of m rhs
+// columns (crkern._factor_fwd_kernel): K5's outputs, then
+//   g = Minv Fo, Fe2 = Fe - OL g, brF = OR^T g.
+template <typename T>
+CRK_HD void factor_fwd_column(const T* __restrict__ Mo, const T* __restrict__ Me,
+                              const T* __restrict__ OL, const T* __restrict__ OR,
+                              const T* __restrict__ Fo, const T* __restrict__ Fe,
+                              T* __restrict__ Minv_o, T* __restrict__ Mhalf_o,
+                              T* __restrict__ Onext_o, T* __restrict__ S_o,
+                              T* __restrict__ Fe2_o, T* __restrict__ brF_o,
+                              long L, int m) {
+  T Minv[NB * NB];
+  factor_column(Mo, Me, OL, OR, Minv_o, Mhalf_o, Onext_o, S_o, L, Minv);
+  T t[NB], u[NB];
   for (int j = 0; j < m; ++j) {
     matvec<NB, NB>(Minv, NB, 1, &CRK_AT(Fo, 0, j, m), (long)m * L, t);
     matvec<NB, NB>(&CRK_AT(OL, 0, 0, NB), NB * L, L, t, 1, u);

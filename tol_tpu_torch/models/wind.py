@@ -1,10 +1,13 @@
-"""Wind-field models (port of ``tol_tpu/models/wind.py``, models 0 and 1).
+"""Wind-field models (port of ``tol_tpu/models/wind.py``).
+
+    0 zero wind            1 linear boundary layer     2 single thermal
+    3 gridded storm field  4 dual thermals             5 cyclic wind
 
 Each model is a differentiable function of the field-ENU position; the
 3x3 spatial gradient comes from forward-mode AD (``torch.func.jvp``) as
-``jax.jacfwd`` gives it in the JAX package.  Models 2-5 are not ported yet
-(ROADMAP queue A, "The remaining solve configs") and raise
-``NotImplementedError``.
+``jax.jacfwd`` gives it in the JAX package.  Model 3 (with ``io/storm.py``
+and ``io/native.py``) is not ported yet (ROADMAP queue A item 11) and
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -43,10 +46,6 @@ class WindConfig:
     grid: Optional[object] = None
 
 
-_UNPORTED = {2: "single thermal", 3: "gridded storm field",
-             4: "dual thermals", 5: "cyclic wind"}
-
-
 def _local_ned_to_field_enu(cfg: WindConfig, p_ned: torch.Tensor) -> torch.Tensor:
     x_e = p_ned[..., 1] + cfg.east0
     y_n = p_ned[..., 0] + cfg.north0
@@ -66,6 +65,39 @@ def _boundary_layer(cfg: WindConfig, p_enu: torch.Tensor) -> torch.Tensor:
     return torch.stack([zero, v, zero], dim=-1)
 
 
+def _thermal_updraft(p_enu, xth, yth, vcore, rlift):
+    """Gaussian thermal w_up = vcore * exp(-r^2 / rlift^2)."""
+    r2 = (p_enu[..., 0] - xth) ** 2 + (p_enu[..., 1] - yth) ** 2
+    return vcore * torch.exp(-r2 / (rlift * rlift))
+
+
+def _thermal(cfg: WindConfig, p_enu: torch.Tensor) -> torch.Tensor:
+    w = _thermal_updraft(p_enu, cfg.xth, cfg.yth, cfg.vcore, cfg.rlift)
+    zero = torch.zeros_like(w)
+    return torch.stack([zero, zero, w], dim=-1)
+
+
+def _dual_thermal(cfg: WindConfig, p_enu: torch.Tensor) -> torch.Tensor:
+    """Source + sink pair."""
+    w = (_thermal_updraft(p_enu, cfg.xth, cfg.yth, cfg.vcore, cfg.rlift)
+         + _thermal_updraft(p_enu, cfg.xth2, cfg.yth2, cfg.vcore2, cfg.rlift2))
+    zero = torch.zeros_like(w)
+    return torch.stack([zero, zero, w], dim=-1)
+
+
+def _cyclic(cfg: WindConfig, p_enu: torch.Tensor) -> torch.Tensor:
+    """Horizontal vortex of speed vcore about (xth, yth); still at the core."""
+    dx = p_enu[..., 0] - cfg.xth
+    dy = p_enu[..., 1] - cfg.yth
+    r = torch.sqrt(dx * dx + dy * dy)
+    away = r > 0
+    safe_r = torch.where(away, r, torch.ones_like(r))
+    zero = torch.zeros_like(r)
+    wx = torch.where(away, -cfg.vcore * dy / safe_r, zero)
+    wy = torch.where(away, cfg.vcore * dx / safe_r, zero)
+    return torch.stack([wx, wy, zero], dim=-1)
+
+
 def wind_enu(cfg: WindConfig, p_enu: torch.Tensor) -> torch.Tensor:
     """ENU wind (u east, v north, w up) at field-ENU positions (..., 3)."""
     model = int(cfg.model)
@@ -73,10 +105,16 @@ def wind_enu(cfg: WindConfig, p_enu: torch.Tensor) -> torch.Tensor:
         return _zero_wind(cfg, p_enu)
     if model == 1:
         return _boundary_layer(cfg, p_enu)
-    if model in _UNPORTED:
+    if model == 2:
+        return _thermal(cfg, p_enu)
+    if model == 3:
         raise NotImplementedError(
-            f"wind model {model} ({_UNPORTED[model]}) is not ported yet: "
-            "ROADMAP.md queue A, 'The remaining solve configs'")
+            "wind model 3 (gridded storm field) is not ported yet: "
+            "ROADMAP.md queue A item 11, 'The remaining solve configs'")
+    if model == 4:
+        return _dual_thermal(cfg, p_enu)
+    if model == 5:
+        return _cyclic(cfg, p_enu)
     raise ValueError(f"unknown wind model {model}")
 
 

@@ -1,10 +1,12 @@
 """Build and load the CUDA kernels of ``tol_tpu_torch/csrc``.
 
-At first use ``nvcc`` compiles ``csrc/crkern.cu`` into a shared library with
-a plain C interface under ``build/tol_tpu_torch/<hash>/`` at the repository
-root (listed in ``.gitignore``), keyed by a hash of the sources and flags,
-and ``ctypes`` loads it.  No PyTorch header is compiled, so the build takes
-seconds.  Pivots need correctly rounded ``1/sqrt``: no ``--use_fast_math``.
+At first use ``nvcc`` compiles every ``.cu`` file under ``csrc/`` into a
+shared library of its own with a plain C interface (``lib<name>.so``), all
+compilers started together, under ``build/tol_tpu_torch/<hash>/`` at the
+repository root (listed in ``.gitignore``).  The hash covers every source
+and header under ``csrc/`` and the flags.  ``ctypes`` loads the libraries.
+No PyTorch header is compiled, so a build takes seconds.  Pivots need
+correctly rounded square roots and divisions: no ``--use_fast_math``.
 """
 
 from __future__ import annotations
@@ -19,19 +21,27 @@ import tempfile
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
-_SOURCES = ("crkern.cu", "crkern_block.cuh")
-_MAIN = "crkern.cu"
 BUILD_ROOT = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build",
                           "tol_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P = ctypes.c_void_p
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+# library (csrc/<name>.cu) -> entry point -> argument types; every entry
+# point returns the CUDA error of its launch.
 _SIGNATURES = {
-    "crp_factor_fwd_level": [_P] * 12 + [ctypes.c_long, ctypes.c_int, _P],
-    "crp_fwd_level": [_P] * 7 + [ctypes.c_long, ctypes.c_int, _P],
-    "crp_bwd_level": [_P] * 7 + [ctypes.c_long, ctypes.c_int, _P],
-    "crp_root": [_P] * 4 + [ctypes.c_long, ctypes.c_int, ctypes.c_int, _P],
+    "crkern": {
+        "crp_factor_fwd_level": [_P] * 12 + [_L, _I, _P],
+        "crp_factor_level": [_P] * 8 + [_L, _P],
+        "crp_fwd_level": [_P] * 7 + [_L, _I, _P],
+        "crp_bwd_level": [_P] * 7 + [_L, _I, _P],
+        "crp_root": [_P] * 4 + [_L, _I, _I, _P],
+    },
+    "chainkern": {
+        "chain_factor": [_P] * 7 + [_I, _I, _L, _P],
+        "chain_rhs_forward": [_P] * 6 + [_I, _I, _L, _P],
+        "chain_back_sub": [_P] * 4 + [_I, _I, _L, _P],
+    },
 }
 
 
@@ -44,49 +54,65 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _sources() -> list[str]:
+    return sorted(f for f in os.listdir(_CSRC) if f.endswith((".cu", ".cuh")))
+
+
 def _source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in _SOURCES:
+    for name in _sources():
         with open(os.path.join(_CSRC, name), "rb") as f:
             h.update(name.encode() + f.read())
     return h.hexdigest()[:16]
 
 
-def build() -> tuple[str, str]:
-    """Compile the kernels if this source hash has no library yet.
+def build() -> dict[str, tuple[str, str]]:
+    """Compile every ``csrc/*.cu`` that has no library for this source hash
+    yet, one ``nvcc`` per file, all running at once.
 
-    Returns (path of the library, ptxas report of this build or "" when
-    the library was already there)."""
+    Returns ``{name: (path of the library, ptxas report of this build or ""
+    when the library was already there)}``."""
     out_dir = os.path.join(BUILD_ROOT, _source_hash())
-    lib = os.path.join(out_dir, "libcrkern.so")
-    if os.path.exists(lib):
-        return lib, ""
     os.makedirs(out_dir, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(_CSRC, _MAIN)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, lib)
-    report = os.path.join(out_dir, "ptxas.txt")
-    with open(report, "w") as f:
-        f.write(proc.stderr)
-    return lib, proc.stderr
+    out, running = {}, []
+    for src in (f for f in _sources() if f.endswith(".cu")):
+        name = src[:-3]
+        lib = os.path.join(out_dir, f"lib{name}.so")
+        if os.path.exists(lib):
+            out[name] = (lib, "")
+            continue
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(_CSRC, src)]
+        running.append((name, lib, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for name, lib, tmp, proc in running:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"nvcc failed on {name}.cu ({proc.returncode}):\n{err}")
+            continue
+        os.replace(tmp, lib)
+        with open(os.path.join(out_dir, f"ptxas_{name}.txt"), "w") as f:
+            f.write(err)
+        out[name] = (lib, err)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return out
 
 
 @functools.lru_cache(maxsize=None)
-def load_library() -> ctypes.CDLL:
-    """The kernel library, built on first call and loaded once per process."""
-    path, _ = build()
-    lib = ctypes.CDLL(path)
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
+def load_library(name: str = "crkern") -> ctypes.CDLL:
+    """The kernel library ``csrc/<name>.cu``, built on first call and loaded
+    once per process."""
+    lib = ctypes.CDLL(build()[name][0])
+    for fn_name, argtypes in _SIGNATURES[name].items():
+        fn = getattr(lib, fn_name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    lib.crp_error_string.argtypes = [ctypes.c_int]
-    lib.crp_error_string.restype = ctypes.c_char_p
+    lib.kernel_error_string.argtypes = [ctypes.c_int]
+    lib.kernel_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -94,4 +120,5 @@ def check(lib: ctypes.CDLL, code: int, name: str) -> None:
     """Raise if a launch returned a CUDA error."""
     if code != 0:
         raise RuntimeError(
-            f"{name}: CUDA error {code}: {lib.crp_error_string(code).decode()}")
+            f"{name}: CUDA error {code}: "
+            f"{lib.kernel_error_string(code).decode()}")

@@ -10,8 +10,9 @@ Newton direction to the float32 noise floor and fail the S10 cost gate.
 Each level's blocks sit in a slab ``(a, b, p*B)`` whose entry
 ``(i, j, k*B + n)`` is block k of lane n, so a level is one launch over
 all its (block, lane) columns and neighbouring lanes are neighbouring
-addresses.  Four kernels do the level math (``csrc/crkern.cu``):
+addresses.  Five kernels do the level math (``csrc/crkern.cu``):
 
+    K5 crp_factor_level       factor one level (no rhs)
     K1 crp_factor_fwd_level   factor one level + eliminate known rhs
     K2 crp_fwd_level          eliminate a new rhs against a stored level
     K3 crp_bwd_level          back-substitute one level
@@ -23,8 +24,9 @@ CPU tensor; nothing else selects between them.  Each counts its launches in
 ``<wrapper>.launches``.  The even/odd split, the one-block shifts and the
 interleave between levels are plain torch.
 
-Public API (batch-first): :func:`crp_factor_solve`, :func:`crp_solve`,
-:func:`crp_pad_rhs`.  Non-SPD pivots surface as NaN in that lane only.
+Public API (batch-first): :func:`crp_factor`, :func:`crp_factor_solve`,
+:func:`crp_solve`, :func:`crp_pad_rhs`.  Non-SPD pivots surface as NaN in
+that lane only.
 """
 
 from __future__ import annotations
@@ -90,8 +92,8 @@ def _chol_slab(A):
         s = A[:, j]
         for k in range(j):
             s = s - cols[k][j] * cols[k]
-        d = 1.0 / torch.sqrt(s[j])          # correctly rounded, not rsqrt
-        cols.append(s * d)
+        # the quotient, not s * (1 / sqrt): see csrc/crkern_block.cuh
+        cols.append(s / torch.sqrt(s[j]))
     return cols
 
 
@@ -146,13 +148,17 @@ def _mm_nt(A, B):
     return out
 
 
-def factor_fwd_level_plain(Mo, Me, OL, OR, Fo, Fe):
-    """Twin of K1: one level's factor fused with the rhs elimination."""
+def factor_level_plain(Mo, Me, OL, OR):
+    """Twin of K5: one level's factor -> (Minv, Mhalf, Onext, S)."""
     Minv = _spd_inverse_slab(Mo)
     MinvOR = _mm(Minv, OR)
     Mhalf = Me - _mm(OL, _mm_nt(Minv, OL))
-    Onext = -_mm(OL, MinvOR)
-    S = _mm_tn(OR, MinvOR)
+    return Minv, Mhalf, -_mm(OL, MinvOR), _mm_tn(OR, MinvOR)
+
+
+def factor_fwd_level_plain(Mo, Me, OL, OR, Fo, Fe):
+    """Twin of K1: one level's factor fused with the rhs elimination."""
+    Minv, Mhalf, Onext, S = factor_level_plain(Mo, Me, OL, OR)
     g = _mm(Minv, Fo)
     return Minv, Mhalf, Onext, S, Fe - _mm(OL, g), _mm_tn(OR, g)
 
@@ -227,6 +233,21 @@ def crp_factor_fwd_level(Mo, Me, OL, OR, Fo, Fe):
     return tuple(outs)
 
 
+def crp_factor_level(Mo, Me, OL, OR):
+    """K5 (replaces crkern.py:_factor_kernel).  Slabs (11, 11, L) ->
+    (Minv, Mhalf, Onext, S)."""
+    if Mo.device.type == "cpu":
+        return factor_level_plain(Mo, Me, OL, OR)
+    L, _ = _check("crp_factor_level", [Mo, Me, OL, OR], [])
+    outs = [torch.empty_like(Mo) for _ in range(4)]
+    lib = _build.load_library()
+    code = lib.crp_factor_level(*map(_ptr, (Mo, Me, OL, OR)), *map(_ptr, outs),
+                                L, _stream(Mo))
+    crp_factor_level.launches += 1
+    _build.check(lib, code, "crp_factor_level")
+    return tuple(outs)
+
+
 def crp_fwd_level(Minv, OL, OR, fo, fe):
     """K2 (replaces crkern.py:_fwd_kernel) -> (fe2, br)."""
     if Minv.device.type == "cpu":
@@ -272,7 +293,8 @@ def crp_root(A, F, invert):
     return Rinv, X
 
 
-KERNELS = (crp_factor_fwd_level, crp_fwd_level, crp_bwd_level, crp_root)
+KERNELS = (crp_factor_fwd_level, crp_fwd_level, crp_bwd_level, crp_root,
+           crp_factor_level)
 for _k in KERNELS:
     _k.launches = 0
 
@@ -285,6 +307,22 @@ def reset_launch_counts() -> None:
 # ---------------------------------------------------------------------------
 # level drivers (slab space)
 # ---------------------------------------------------------------------------
+
+
+def _factor_slab(M, O, Bb):
+    """Factor only.  Returns (levels, root_inv) in slab space."""
+    levels = []
+    p = M.shape[2] // Bb
+    while p > 1:
+        Me, Mo = _split_oe(M, Bb)
+        OL, OR = _split_oe(O, Bb)
+        Minv, Mhalf, Onext, S = crp_factor_level(Mo, Me, OL, OR)
+        M = (Mhalf - _shift_fwd(S, Bb)).contiguous()
+        O = Onext
+        levels.append((Minv, OL, OR))
+        p //= 2
+    root_inv, _ = crp_root(M, M.new_empty(M.shape[0], 0, Bb), invert=True)
+    return levels, root_inv
 
 
 def _factor_fwd_slab(M, O, F, Bb):
@@ -348,14 +386,9 @@ def crp_pad_rhs(f, n_pad):
     return torch.cat([f, pad], dim=1)
 
 
-def crp_factor_solve(M, O, F):
-    """Fused factor + multi-rhs solve of B chains.
-
-    ``M``, ``O``: (B, n, b, b) with ``O[:, i]`` coupling x_i to x_{i+1};
-    ``F``: (B, n, b, m) rhs columns known before the factor.  Returns
-    ``(levels, root_inv, X)``: ``X`` (B, n_pad, b, m) solves each chain
-    (callers slice ``[:, :n]``), and ``(levels, root_inv)`` is the factor
-    in slab layout, opaque to callers, for :func:`crp_solve`."""
+def _pad_chain(M, O):
+    """Pad the chains to a power-of-two length with identity blocks and cut
+    the last coupling; returns (M, O, n_pad)."""
     Bb, n, b = M.shape[0], M.shape[1], M.shape[2]
     p = _pow2(n)
     if p != n:
@@ -364,16 +397,37 @@ def crp_factor_solve(M, O, F):
         M = torch.cat([M, eye], dim=1)
         O = torch.cat([O, torch.zeros(Bb, p - n, b, b, dtype=M.dtype,
                                       device=M.device)], dim=1)
-    F = crp_pad_rhs(F, p)
     O = O.clone()
     O[:, p - 1] = 0.0
+    return M, O, p
+
+
+def crp_factor(M, O):
+    """Factor B chains: ``M``, ``O`` (B, n, b, b) with ``O[:, i]`` coupling
+    x_i to x_{i+1}.  Returns ``(levels, root_inv)``, the factor in slab
+    layout, opaque to callers, for :func:`crp_solve`."""
+    M, O, _ = _pad_chain(M, O)
+    levels, root_inv = _factor_slab(_to_slab(M), _to_slab(O), M.shape[0])
+    return tuple(levels), root_inv
+
+
+def crp_factor_solve(M, O, F):
+    """Fused factor + multi-rhs solve of B chains.
+
+    ``M``, ``O`` as :func:`crp_factor`; ``F``: (B, n, b, m) rhs columns
+    known before the factor.  Returns ``(levels, root_inv, X)``: ``X``
+    (B, n_pad, b, m) solves each chain (callers slice ``[:, :n]``), and
+    ``(levels, root_inv)`` is the factor :func:`crp_factor` returns."""
+    M, O, p = _pad_chain(M, O)
     levels, root_inv, x = _factor_fwd_slab(_to_slab(M), _to_slab(O),
-                                           _to_slab(F), Bb)
-    return tuple(levels), root_inv, _from_slab(x, Bb)
+                                           _to_slab(crp_pad_rhs(F, p)),
+                                           M.shape[0])
+    return tuple(levels), root_inv, _from_slab(x, M.shape[0])
 
 
 def crp_solve(levels, root_inv, f):
-    """Solve with a :func:`crp_factor_solve` factor.  ``f`` (B, n_pad, b, m)
-    zero-padded by :func:`crp_pad_rhs`; returns (B, n_pad, b, m)."""
+    """Solve with a :func:`crp_factor` / :func:`crp_factor_solve` factor.
+    ``f`` (B, n_pad, b, m) zero-padded by :func:`crp_pad_rhs`; returns
+    (B, n_pad, b, m)."""
     Bb = f.shape[0]
     return _from_slab(_solve_slab(list(levels), root_inv, _to_slab(f), Bb), Bb)

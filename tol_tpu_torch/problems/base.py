@@ -23,6 +23,7 @@ from tol_tpu_torch.config import (AircraftParams, Gains, Goal, Limits,
                                   MissionBoxes, ProblemConfig, StitchState)
 from tol_tpu_torch.models.dynamics import NUM_STATES, state_derivatives
 from tol_tpu_torch.models.wind import WindConfig, wind_with_gradient_ned
+from tol_tpu_torch.problems import g7 as _g7
 from tol_tpu_torch.problems import s10 as _s10
 
 
@@ -190,14 +191,12 @@ def make_instance(cfg: ProblemConfig, goal: Goal, wind: WindConfig,
 
 def build_nlp(cfg: ProblemConfig, goal: Goal, wind: WindConfig,
               dtype=torch.float64, device=None) -> CollocationNLP:
-    """Assemble the mission NLP.  S10 only in this slice of the port."""
+    """Assemble the mission NLP (``cfg.mission`` "S10" or "G7")."""
     device = resolve_device(device)
     if cfg.mission == "S10":
         mod = _s10
     elif cfg.mission == "G7":
-        raise NotImplementedError(
-            "mission G7 is not ported yet: ROADMAP.md queue A, "
-            "'The remaining solve configs'")
+        mod = _g7
     else:
         raise ValueError(f'Problem "{cfg.mission}" not recognized.')
 

@@ -89,6 +89,32 @@ def invert_flight_mechanics(path: SeedPath, ac: AircraftParams,
     return Z, path.dt
 
 
+def g7_seed_path(ts: int, chi_d, vamin=None, vamax=None, dtype=torch.float64,
+                 device=None) -> SeedPath:
+    """Straight-line seed rotated to the goal course ``chi_d``: 40 m flown
+    at 4 m/s, or with the airframe's speed limits at a speed clamped into
+    [1.1 vamin, 0.9 vamax] (positions rotated by chi_d, velocities
+    unrotated with chi_d added to the course)."""
+    tt = lambda x: torch.as_tensor(x, dtype=dtype, device=device)
+    x_amp = 40.0
+    speed = tt(4.0)
+    if vamin is not None:
+        speed = torch.maximum(speed, 1.1 * tt(vamin))
+    if vamax is not None:
+        speed = torch.minimum(speed, 0.9 * tt(vamax))
+    chi_d = tt(chi_d)
+    tfinal = x_amp / speed
+    dt = tfinal / ts
+    t = torch.arange(ts + 1, dtype=dtype, device=device) * dt
+    xs = speed * t
+    zero = torch.zeros_like(t)
+    pos = torch.stack([xs * torch.cos(chi_d), xs * torch.sin(chi_d), zero],
+                      dim=1)
+    vel = torch.stack([speed * torch.ones_like(t), zero, zero], dim=1)
+    return SeedPath(pos=pos, vel=vel, acc=torch.zeros_like(pos), dt=dt,
+                    chi_offset=chi_d)
+
+
 def s10_zoom_seed_path(ts: int, aircraft: AircraftParams,
                        dtype=torch.float64, phase: float = 0.5 * math.pi,
                        radius: float = 100.0, device=None) -> SeedPath:

@@ -59,7 +59,7 @@ class ALMOptions(NamedTuple):
     s_max: float = 100.0
     delta_decay: float = 0.2
     stagnation_outer: bool = True
-    trace: bool = False          # not ported: solve() raises when set
+    trace: bool = False          # record per-iteration scalars (solve())
     prox: float = 0.0
     dual_refine_k: int = 0
     gamma_eager: bool = False
@@ -606,9 +606,12 @@ def solve(can: CanonicalNLP, kkt_solve: Callable,
     ``state0`` resumes saved states exactly (the per-lane iteration counter
     continues, so ``params.max_iter`` stays a total budget).  The host
     checks for "every lane done" once per ``_CHECK_EVERY`` steps.
+
+    With ``opts.trace`` at most ``opts.max_iter`` steps run and
+    ``result.trace`` holds, per step, ``(kkt_err, mu, gamma, delta_w,
+    constraint violation, f)`` as six (B, ``opts.max_iter``) tensors; a
+    finished lane repeats its last values.
     """
-    if opts.trace:
-        raise NotImplementedError("ALMOptions.trace is not ported yet")
     # The counterpart of jax.default_matmul_precision("highest"): every
     # float32 product of the Newton pipeline runs in full float32.
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -634,9 +637,17 @@ def solve(can: CanonicalNLP, kkt_solve: Callable,
     st = (kern.init_state(p1 if phase1 is not None else p2, p2,
                           phase1 is not None)
           if state0 is None else state0)
+
+    def record(st: ALMState):
+        return (st.kkt_err, st.mu, st.gamma, st.delta_w,
+                _inf_norm(kern.c_fn(st.v)), st.f_prev)
+
+    records = [] if opts.trace else None
     until_check = 0
     while True:
         active = (~st.converged) & (st.it < p2.max_iter)
+        if opts.trace and len(records) == opts.max_iter:
+            break
         if until_check == 0:
             if not bool(active.any()):
                 break
@@ -645,7 +656,14 @@ def solve(can: CanonicalNLP, kkt_solve: Callable,
             left = int((p2.max_iter - st.it)[active].max())
             until_check = min(_CHECK_EVERY, left)
         st = _select(active, step(st), st)
+        if opts.trace:
+            records.append(record(st))
         until_check -= 1
+
+    trace = None
+    if opts.trace:
+        records += [record(st)] * (opts.max_iter - len(records))
+        trace = tuple(torch.stack(x, dim=1) for x in zip(*records))
 
     cv = kern.c_fn(st.v)
     y_fin = (st.y_ls if opts.dual_refine_k > 0
@@ -654,6 +672,6 @@ def solve(can: CanonicalNLP, kkt_solve: Callable,
     return ALMResult(
         v=st.v, y=y_fin, zl=st.zl, zu=st.zu, f=kern.f_fn(st.v),
         iterations=st.it, converged=st.converged, kkt_err=st.kkt_err,
-        constr_viol=viol, phase1_iters=st.n0, trace=None,
+        constr_viol=viol, phase1_iters=st.n0, trace=trace,
         state=st if keep_state else None,
     )

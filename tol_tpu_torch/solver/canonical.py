@@ -47,6 +47,17 @@ class Scaling(NamedTuple):
     s_f: torch.Tensor = None  # type: ignore[assignment]
 
 
+def scaling_from_numpy(fields: dict, device=None,
+                       dtype=torch.float64) -> Scaling:
+    """Scaling from a JAX Scaling's fields as numpy (``_asdict()``), so that
+    both packages can canonicalize with the same scales."""
+    return Scaling(**{
+        k: (None if fields[k] is None
+            else torch.as_tensor(np.array(fields[k]), dtype=dtype,
+                                 device=device))
+        for k in Scaling._fields})
+
+
 def default_scaling(nlp: CollocationNLP, dtype=None) -> Scaling:
     """Physics-derived scales from the default instance.
 

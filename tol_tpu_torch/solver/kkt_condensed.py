@@ -1,5 +1,5 @@
 """Condensed-primal structured KKT backend (port of
-``tol_tpu/solver/kkt_condensed.py``, chain ``"crp"``).
+``tol_tpu/solver/kkt_condensed.py``).
 
 Solves, per lane, the regularized saddle system
 
@@ -8,10 +8,21 @@ Solves, per lane, the regularized saddle system
 
 by eliminating the duals first, leaving the condensed primal system
 ``(H~ + J^T Gamma^-1 J) dv = rhs_v + J^T Gamma^-1 rhs_c``: block-tridiagonal
-in the node variables plus a small border (z_0, dt, slacks).  The chain is
-factored by cyclic reduction through the CUDA level kernels
-(``tol_tpu_torch/ops/crkern.py``) with the border columns eliminated in the
-same pass; ``refine`` saddle-level refinement passes reuse the factor.
+in the node variables plus a small border (z_0, dt, slacks).  ``chain``
+names how the block-tridiagonal part is factored and solved:
+
+    "crp"     cyclic reduction through the CUDA level kernels K1-K4
+              (``ops/crkern.py``), the border columns eliminated in the
+              factor pass; the flagship's chain
+    "pallas"  the fused sequential chain through the CUDA kernels K6-K8
+              (``ops/chainkern.py``); the name is the one the reference's
+              configurations carry for its Pallas kernels
+    "scan"    the same sequential elimination as a loop over the blocks in
+              plain torch
+    "cr"      cyclic reduction in plain torch (``ops/blocktri.py``)
+    "spike"   partitioned elimination in plain torch (``ops/spike.py``)
+
+``refine`` saddle-level refinement passes reuse the factor.
 
 Every tensor carries the lane axis B first.
 """
@@ -23,36 +34,27 @@ import torch
 from torch.func import grad
 
 from tol_tpu_torch.models.dynamics import NUM_STATES, NUM_VARS
+from tol_tpu_torch.ops.blocktri import cr_factor, cr_solve
+from tol_tpu_torch.ops.chainkern import (chain_back_sub, chain_eliminate,
+                                         chain_rhs_forward)
 from tol_tpu_torch.ops.crkern import crp_factor_solve, crp_pad_rhs, crp_solve
-from tol_tpu_torch.ops.smallalg import (bmm_tn, bmv, bmv_t, chol_unrolled,
-                                        tri_solve_unrolled)
+from tol_tpu_torch.ops.smallalg import (bmm, bmm_tn, bmv, bmv_t, chol_unrolled,
+                                        spd_inverse, tri_solve_unrolled)
+from tol_tpu_torch.ops.spike import spike_factor, spike_solve
 from tol_tpu_torch.solver.canonical import CanonicalNLP, jacfwd_lanes
 
 NS, NV = NUM_STATES, NUM_VARS
 
 
-def make_condensed_kkt(can: CanonicalNLP, refine: int = 2, chain: str = "crp"):
-    """Condensed KKT solver over cyclic reduction (``chain="crp"``; the
-    ``scan``, ``cr``, ``pallas`` and ``spike`` chains are not ported yet)."""
-    if chain != "crp":
-        raise NotImplementedError(
-            f"chain {chain!r} is not ported yet: ROADMAP.md queue A, "
-            "'Alternative backends'")
-    nlp = can.nlp
-    T, nb, n_s = nlp.T, nlp.nb, can.n_slack
-    nB = NV + 1 + n_s
-    n_pad = 1
-    while n_pad < T:
-        n_pad *= 2
+CHAINS = ("crp", "pallas", "scan", "cr", "spike")
 
-    ineq_idx = np.flatnonzero(nlp.boundary_is_ineq)
-    Gs_np = np.zeros((nb, n_s))
-    for j, r in enumerate(ineq_idx):
-        Gs_np[r, j] = 1.0
 
-    # Derivative blocks, all lanes (and nodes) at once: gradients by
-    # reverse mode over the lane sum, Jacobians/Hessians by one
-    # forward-mode pass over a replica axis (canonical.jacfwd_lanes).
+def derivative_blocks(nlp):
+    """The per-node and border derivative blocks of the collocation KKT
+    system, all lanes (and nodes) at once: gradients by reverse mode over
+    the lane sum, Jacobians/Hessians by one forward-mode pass over a replica
+    axis (canonical.jacfwd_lanes).  Returns (node_hess, border_hess,
+    defect_jac, bnd_jac)."""
     def node_hess(u, y, inst):
         """(N, 12) node points [z, dt], (N, 8) defect multipliers ->
         (N, 12, 12) Hessians of node_cost + y . defect(z, 0, dt)."""
@@ -87,6 +89,27 @@ def make_condensed_kkt(can: CanonicalNLP, refine: int = 2, chain: str = "crp"):
                                                 u[..., 2 * NV], inst),
                          torch.cat([z0, zT, dt[:, None]], dim=1))
         return J[..., :NV], J[..., NV:2 * NV], J[..., 2 * NV]
+    return node_hess, border_hess, defect_jac, bnd_jac
+
+
+def make_condensed_kkt(can: CanonicalNLP, refine: int = 2, chain: str = "crp"):
+    """Condensed KKT solver; ``chain`` is one of :data:`CHAINS` (see the
+    module docstring)."""
+    if chain not in CHAINS:
+        raise ValueError(f"unknown chain {chain!r}; expected one of {CHAINS}")
+    nlp = can.nlp
+    T, nb, n_s = nlp.T, nlp.nb, can.n_slack
+    nB = NV + 1 + n_s
+    n_pad = 1
+    while n_pad < T:
+        n_pad *= 2
+
+    ineq_idx = np.flatnonzero(nlp.boundary_is_ineq)
+    Gs_np = np.zeros((nb, n_s))
+    for j, r in enumerate(ineq_idx):
+        Gs_np[r, j] = 1.0
+
+    node_hess, border_hess, defect_jac, bnd_jac = derivative_blocks(nlp)
 
     def kkt_prepare(v, y_all, sigma, delta_w, delta_c, inst=None):
         """Assemble + factorize at the current iterates ``v`` (B, n);
@@ -256,23 +279,93 @@ def make_condensed_kkt(can: CanonicalNLP, refine: int = 2, chain: str = "crp"):
             rB = torch.cat([rz[:, 0], r_dt_c[:, None], r_s_c], dim=1)
             return rz, rB, rc_d, rc_b
 
-        # Fused factor + border-column elimination (K1 eliminates Wc in the
-        # same pass over the level data); the border columns are
-        # rhs-independent, so the Schur complement is formed once.
-        fac_levels, fac_root, Yall = crp_factor_solve(M_chain, O_chain, Wc)
-        YW = Yall[:, :T]
-        S_border = B0 - bmm_tn(Wc, YW).sum(1)
-        L_border = chol_unrolled(S_border)
+        def border_solve(L_border, rB_acc):
+            yb_ = tri_solve_unrolled(L_border, rB_acc[..., None], lower=True)
+            return tri_solve_unrolled(L_border, yb_, lower=True,
+                                      trans=True)[..., 0]
+
+        # Each branch factors the chain once with the rhs-independent
+        # border columns Wc and leaves chain_solve(r_chain (B, T, NV),
+        # rB (B, nB)) -> (dZ_chain (B, T, NV), d_beta (B, nB)).
+        if chain in ("crp", "cr", "spike"):
+            if chain == "crp":
+                # Fused factor + border-column elimination (K1 eliminates
+                # Wc in the same pass over the level data).
+                fac_levels, fac_root, Yall = crp_factor_solve(M_chain, O_chain,
+                                                              Wc)
+                YW = Yall[:, :T]
+
+                def tri_solve_chain(F):
+                    return crp_solve(fac_levels, fac_root,
+                                     crp_pad_rhs(F, n_pad))[:, :T]
+            else:
+                factor, solve = ((cr_factor, cr_solve) if chain == "cr"
+                                 else (spike_factor, spike_solve))
+                fac = factor(M_chain, O_chain)
+                tri_solve_chain = lambda F: solve(fac, F)
+                YW = tri_solve_chain(Wc)
+            # Schur complement of the border: S = B0 - W^T Mtri^-1 W.
+            L_border = chol_unrolled(B0 - bmm_tn(Wc, YW).sum(1))
+
+            def chain_solve(r_chain, rB):
+                Yr = tri_solve_chain(r_chain[..., None])[..., 0]
+                d_beta = border_solve(L_border, rB - bmv_t(Wc, Yr).sum(1))
+                return Yr - bmv(YW, d_beta[:, None, :]), d_beta
+
+        elif chain == "pallas":
+            # Factor once (K6, border columns eliminated together); every
+            # solve then runs the O(n^2)-per-block rhs forward pass (K7)
+            # and the back-substitution (K8).
+            Dinv_p, t2p, tRw_p, Sw_p = chain_eliminate(M_chain, O_chain, Wc)
+            L_border = chol_unrolled(B0 - Sw_p)
+
+            def chain_solve(r_chain, rB):
+                tr_p, sb_r = chain_rhs_forward(Dinv_p, O_chain, tRw_p, r_chain)
+                d_beta = border_solve(L_border, rB - sb_r)
+                coef = torch.cat([-d_beta, torch.ones(B, 1, dtype=dtype,
+                                                      device=dev)], dim=1)
+                return chain_back_sub(
+                    torch.cat([tRw_p, tr_p[..., None]], dim=3), t2p,
+                    coef), d_beta
+
+        else:  # "scan": the sequential elimination, block by block
+            Dcorr = torch.zeros(B, NV, NV, dtype=dtype, device=dev)
+            Wcorr = torch.zeros(B, NV, nB, dtype=dtype, device=dev)
+            S_acc = torch.zeros(B, nB, nB, dtype=dtype, device=dev)
+            Dinvs, t2s, tWs, Wts = [], [], [], []
+            for i in range(T):
+                Oi = O_chain[:, i]
+                Wt = Wc[:, i] - Wcorr
+                Dinv = spd_inverse(M_chain[:, i] - Dcorr)
+                tW = bmm(Dinv, Wt)                 # D~^-1 W~  (11, nB)
+                t2 = bmm(Dinv, Oi)                 # D~^-1 O_i (11, 11)
+                S_acc = S_acc - bmm_tn(Wt, tW)
+                Dcorr, Wcorr = bmm_tn(Oi, t2), bmm_tn(Oi, tW)
+                Dinvs.append(Dinv)
+                t2s.append(t2)
+                tWs.append(tW)
+                Wts.append(Wt)
+            L_border = chol_unrolled(B0 + S_acc)
+
+            def chain_solve(r_chain, rB):
+                rcorr = torch.zeros(B, NV, dtype=dtype, device=dev)
+                rB_acc, trs = rB, []
+                for i in range(T):
+                    tr = bmv(Dinvs[i], r_chain[:, i] - rcorr)   # D~^-1 r~
+                    rB_acc = rB_acc - bmv_t(Wts[i], tr)
+                    rcorr = bmv_t(O_chain[:, i], tr)
+                    trs.append(tr)
+                d_beta = border_solve(L_border, rB_acc)
+                dv_next = torch.zeros(B, NV, dtype=dtype, device=dev)
+                dZs = [None] * T
+                for i in range(T - 1, -1, -1):
+                    dv_next = trs[i] - bmv(tWs[i], d_beta) - bmv(t2s[i], dv_next)
+                    dZs[i] = dv_next
+                return torch.stack(dZs, dim=1), d_beta
 
         def solve_once(rhs_v_, rhs_c_):
             rz, rB, rc_d, rc_b = condense_rhs(rhs_v_, rhs_c_)
-            Yr = crp_solve(fac_levels, fac_root,
-                           crp_pad_rhs(rz[:, 1:, :, None], n_pad))[:, :T, :, 0]
-            rB_acc = rB - bmv_t(Wc, Yr).sum(1)
-            yb_ = tri_solve_unrolled(L_border, rB_acc[..., None], lower=True)
-            d_beta = tri_solve_unrolled(L_border, yb_, lower=True,
-                                        trans=True)[..., 0]
-            dZ_chain = Yr - bmv(YW, d_beta[:, None, :])
+            dZ_chain, d_beta = chain_solve(rz[:, 1:], rB)
             dz0 = d_beta[:, :NV] * m0
             ddt = d_beta[:, NV]
             ds = d_beta[:, NV + 1:]
