@@ -9,15 +9,18 @@ Phases, each of which must pass (any failure exits non-zero and prints no
 1. build   — compile every kernel source under ``tol_tpu_torch/csrc`` with
              nvcc, one compiler per source, all at once (timed as set-up).
 2. kernels — hold each of the eight kernels against its plain PyTorch twin
-             on the card at the solves' shapes: the cyclic-reduction level
-             kernels K1-K5 at 11x11 blocks, B=128 lanes, CR levels
-             h = 64..1, rhs widths m = 12, 14 and 1; the sequential-chain
-             kernels K6-K8 at T=100 blocks, B=128 lanes, border widths 12
-             and 14.  Each case includes a lane with an indefinite pivot
-             that must come out NaN in that lane only.  Kernel, twin and a
-             library yardstick are timed with CUDA events and each
-             kernel's bound is reckoned; for K6-K8 also the floor that the
-             T dependent steps set.
+             on the card at the solves' shapes: the cyclic-reduction
+             kernels K1-K5 at 11x11 blocks, B=128 lanes, T=100 blocks
+             padded to 128 (CR levels h = 64..1), rhs widths m = 12, 14
+             and 1 (K1 and K3 take the level-0 operands and run the 7
+             levels in one launch; K2 and K5 run one launch per level);
+             the sequential-chain kernels K6-K8 at T=100 blocks, B=128
+             lanes, border widths 12 and 14.  Each case includes a lane
+             with an indefinite pivot that must come out NaN in that lane
+             only.  Kernel, twin and a library yardstick are timed with
+             CUDA events, each kernel also by its own device time under
+             torch.profiler, and each kernel's bound is reckoned; for K6-K8
+             also the floor that the T dependent steps set.
 3. chains  — the same 128 chains of T=100 blocks solved by
              ``crp_factor`` + ``crp_solve``, by ``crp_factor_solve``, by
              ``chain_eliminate`` + ``chain_rhs_forward`` +
@@ -81,10 +84,10 @@ CR_SOURCE = "tol_tpu_torch/csrc/crkern.cu"
 CHAIN_SOURCE = "tol_tpu_torch/csrc/chainkern.cu"
 # kernel -> (source, the TPU kernel it replaces)
 KERNELS = {
-    "crp_factor_fwd_level": (
+    "crp_factor_fwd_pass": (
         CR_SOURCE, "tol_tpu/ops/crkern.py:168 _factor_fwd_kernel"),
     "crp_fwd_level": (CR_SOURCE, "tol_tpu/ops/crkern.py:193 _fwd_kernel"),
-    "crp_bwd_level": (CR_SOURCE, "tol_tpu/ops/crkern.py:204 _bwd_kernel"),
+    "crp_bwd_pass": (CR_SOURCE, "tol_tpu/ops/crkern.py:204 _bwd_kernel"),
     "crp_root": (CR_SOURCE, "tol_tpu/ops/crkern.py:213 _root_kernel + "
                  "tol_tpu/ops/crkern.py:217 _root_solve_kernel"),
     "crp_factor_level": (CR_SOURCE, "tol_tpu/ops/crkern.py:144 _factor_kernel"),
@@ -93,8 +96,17 @@ KERNELS = {
         CHAIN_SOURCE, "tol_tpu/ops/chainkern.py:170 _rhs_forward_kernel"),
     "chain_back_sub": (CHAIN_SOURCE, "tol_tpu/ops/chainkern.py:201 _bwd_kernel"),
 }
-CR_LEVEL_KERNELS = ("crp_factor_fwd_level", "crp_fwd_level", "crp_bwd_level",
+CR_LEVEL_KERNELS = ("crp_factor_fwd_pass", "crp_fwd_level", "crp_bwd_pass",
                     "crp_root")
+# kernel -> its __global__ function, as ptxas and the profiler name it
+SYMBOLS = {"crp_factor_fwd_pass": "factor_fwd_pass_kernel",
+           "crp_fwd_level": "fwd_level_kernel",
+           "crp_bwd_pass": "bwd_pass_kernel",
+           "crp_root": "root_kernel",
+           "crp_factor_level": "factor_level_kernel",
+           "chain_factor": "chain_factor_kernel",
+           "chain_rhs_forward": "chain_rhs_forward_kernel",
+           "chain_back_sub": "chain_back_sub_kernel"}
 CHAIN_KERNELS = ("chain_factor", "chain_rhs_forward", "chain_back_sub")
 # Dependent fp32 operations on the critical path of one chain block:
 # K6: Cholesky column j waits for j products, a square root and a
@@ -142,6 +154,41 @@ def _reset_launch_counts(ck, ch) -> None:
 # phase 2: kernels against their twins
 # ---------------------------------------------------------------------------
 
+def _ptxas_by_kernel(reports):
+    """{kernel: registers and spill bytes} from nvcc's -Xptxas -v reports."""
+    out, cur = {}, None
+    for ln in (ln for r in reports for ln in r.splitlines()):
+        if "Compiling entry function" in ln:
+            hits = [k for k, sym in SYMBOLS.items() if sym in ln]
+            cur = max(hits, key=lambda k: len(SYMBOLS[k])) if hits else None
+            if cur:
+                out[cur] = {}
+        elif cur and "spill stores" in ln:
+            words = ln.split()
+            out[cur]["spill_stores"] = int(words[words.index("spill") - 2])
+            out[cur]["spill_loads"] = int(words[-4])
+        elif cur and "registers" in ln:
+            words = ln.split()
+            out[cur]["registers"] = int(words[words.index("registers,") - 1])
+    return out
+
+
+def _device_ms(torch, fn, symbol, reps):
+    """Mean device time of the kernel ``symbol`` per ``fn()`` under
+    torch.profiler (None if the profiler saw none)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and symbol in e.key)
+    return us / 1e3 / reps if us > 0 else None
+
+
 def _time_ms(torch, fn, reps):
     """Mean ms of ``fn()`` over ``reps`` runs, by CUDA events after warm-up."""
     fn()
@@ -182,6 +229,17 @@ def _tuple(x):
     return x if isinstance(x, tuple) else (x,)
 
 
+def _flat_pass(levels, stack, *rest):
+    """K1's outputs (per-level slabs, then the root's) as one tuple."""
+    return tuple(t for lv in levels for t in lv) + tuple(stack) + rest
+
+
+def _clone(x):
+    if isinstance(x, (list, tuple)):
+        return type(x)(_clone(a) for a in x)
+    return x.clone() if hasattr(x, "clone") else x
+
+
 def _compare(torch, got, ref):
     """(max abs err, relative max-norm err) over output tensors."""
     abs_err, rel_err = 0.0, 0.0
@@ -202,14 +260,39 @@ def _nan_lane_ok(torch, outs, col):
     return True
 
 
+def _nan_pass_ok(torch, outs, col, must):
+    """The whole passes: no output has a NaN outside lane ``col``, and the
+    outputs ``must`` (the root's, the solution) have one in it.  Slabs keep
+    the lane in the trailing axis mod B_LANES, batch-first tensors in the
+    leading one."""
+    for i, o in enumerate(outs):
+        nan = torch.isnan(o)
+        lanes = (nan.reshape(-1, B_LANES).any(0) if o.shape[0] == NB
+                 else nan.flatten(1).any(1))
+        if int(lanes.sum()) - int(lanes[col]) or (i in must
+                                                  and not bool(lanes[col])):
+            return False
+    return True
+
+
 def _poison_pivot(torch, args, col):
     """K1, K4, K5 invert their first operand: an indefinite block there."""
     args[0][:, :, col] = -torch.eye(NB, device=args[0].device)
 
 
 def _poison_nan(torch, args, col):
-    """K2, K3 apply a stored inverse: a NaN one (what K1 hands on)."""
+    """K2 applies a stored inverse: a NaN one (what K1 hands on)."""
     args[0][:, :, col] = float("nan")
+
+
+def _poison_pass_pivot(torch, args, col):
+    """K1: lane ``col``'s first level-0 pivot (block 1) is indefinite."""
+    args[0][col, 1] = -torch.eye(NB, device=args[0].device)
+
+
+def _poison_pass_nan(torch, args, col):
+    """K3: lane ``col``'s pivot inverse at the root level is NaN."""
+    args[0][-1][0][:, :, col] = float("nan")
 
 
 def _poison_chain_pivot(torch, args, col):
@@ -224,9 +307,10 @@ def _poison_chain_nan(torch, args, col):
 
 def _cr_cases(torch, ck, gen, dev):
     """K1-K5.  Per kernel: the inputs of one CR pass over the 7 levels
-    (timed), the inputs of the kernel's other solve shapes (``extra``,
-    checked only), the kernel call, the twin call, and the bytes / FLOPs the
-    timed pass must move / do."""
+    (timed: one launch for K1 and K3, one per level for the others), the
+    inputs of the kernel's other solve shapes (``extra``, checked only),
+    the kernel call, the twin call, and the bytes / FLOPs the timed pass
+    must move / do."""
     fl = 4  # bytes per float32
     n3, n2 = NB ** 3, NB ** 2
     tri = NB * (NB + 1) // 2    # the pivot inverse reads only the lower triangle
@@ -236,32 +320,42 @@ def _cr_cases(torch, ck, gen, dev):
     def per_level(make):
         return [make(h * B_LANES) for h in LEVELS]
 
-    def factor_fwd_inputs(m):
-        return per_level(lambda L: [_spd_slab(torch, gen, L, dev),
-                                    _spd_slab(torch, gen, L, dev),
-                                    _rand_slab(torch, gen, NB, L, dev),
-                                    _rand_slab(torch, gen, NB, L, dev),
-                                    _rand_slab(torch, gen, m, L, dev, 1.0),
-                                    _rand_slab(torch, gen, m, L, dev, 1.0)])
+    def pass_inputs(m):
+        """Level 0 of the K1 pass: B_LANES chains of TS blocks padded to
+        n_pad = 128, batch-first."""
+        M, O, F = _chains(torch, gen, TS, m, dev)
+        M, O, n_pad = ck._pad_chain(M, O)
+        return [M.contiguous(), O.contiguous(),
+                ck.crp_pad_rhs(F, n_pad).contiguous()]
+
+    def factor_fwd_pass_plain(M, O, F):
+        return ck.factor_fwd_pass_plain(ck._to_slab(M), ck._to_slab(O),
+                                        ck._to_slab(F), B_LANES)
 
     def bwd_inputs(m):
-        return per_level(lambda L: [_rand_slab(torch, gen, NB, L, dev),
-                                    _rand_slab(torch, gen, NB, L, dev),
-                                    _rand_slab(torch, gen, NB, L, dev)]
-                         + [_rand_slab(torch, gen, m, L, dev, 1.0)
-                            for _ in range(3)])
+        """What the K3 pass takes in a factor + solve at width m: the
+        factor's levels, the saved rhs blocks and the root solution."""
+        levels, stack, M, F = factor_fwd_pass_plain(*pass_inputs(m))
+        return [levels, stack, ck.root_plain(M, F, True)[1]]
 
-    # K1: factor one level + eliminate the border columns: 12 of them on
-    # S10 (timed), 14 on G7.
+    n_pad = 2 * LEVELS[0]
+    # K1: the 7-level factor pass with the border columns: 12 of them on
+    # S10 (timed), 14 on G7.  Least bytes: level 0 read once (each odd
+    # pivot's lower triangle, even blocks whole, O, F), every level's
+    # Minv, OL, OR, Fo and the root's M, F written once.
     m = 12
     factor_flops = 2 * n3 // 6 + 2 * n3 + 10 * n3
-    cases["crp_factor_fwd_level"] = dict(
-        inputs=factor_fwd_inputs(m), extra=factor_fwd_inputs(14),
-        kernel=ck.crp_factor_fwd_level, plain=ck.factor_fwd_level_plain,
-        poison=_poison_pivot,
-        bytes=cols * fl * ((tri + 3 * n2 + 2 * NB * m)
-                           + (4 * n2 + 2 * NB * m)),
-        flops=cols * (factor_flops + 6 * n2 * m))
+    blocks = sum(LEVELS)
+    cases["crp_factor_fwd_pass"] = dict(
+        inputs=[pass_inputs(m)], extra=[pass_inputs(14)],
+        kernel=ck.crp_factor_fwd_pass, plain=factor_fwd_pass_plain,
+        flat=lambda out: _flat_pass(*out), poison=_poison_pass_pivot,
+        nan_must=(-2, -1),
+        bytes=B_LANES * fl * (n_pad // 2 * (tri + n2) + n_pad * (n2 + NB * m)
+                              + blocks * (3 * n2 + NB * m) + n2 + NB * m),
+        flops=cols * (factor_flops + 6 * n2 * m),
+        bytes_per_level_sum=cols * fl * ((tri + 3 * n2 + 2 * NB * m)
+                                         + (4 * n2 + 2 * NB * m)))
     # K2: forward elimination of one new rhs column (m = 1).
     m = 1
     k2 = per_level(lambda L: [_rand_slab(torch, gen, NB, L, dev),
@@ -274,14 +368,20 @@ def _cr_cases(torch, ck, gen, dev):
         poison=_poison_nan,
         bytes=cols * fl * (3 * n2 + 2 * NB * m + 2 * NB * m),
         flops=cols * 6 * n2 * m)
-    # K3: back-substitution of one rhs column (m = 1, timed), and of the 12
-    # or 14 border columns in the factor pass.
-    cases["crp_bwd_level"] = dict(
-        inputs=bwd_inputs(m), extra=bwd_inputs(12) + bwd_inputs(14),
-        kernel=ck.crp_bwd_level, plain=ck.bwd_level_plain,
-        poison=_poison_nan,
-        bytes=cols * fl * (3 * n2 + 3 * NB * m + NB * m),
-        flops=cols * 6 * n2 * m)
+    # K3: the 7-level back-substitution of one rhs column (m = 1, timed),
+    # and of the 12 or 14 border columns in the factor + solve.  Least
+    # bytes: the factor, the saved rhs and the root solution read once, the
+    # solution written once.
+    cases["crp_bwd_pass"] = dict(
+        inputs=[bwd_inputs(m)], extra=[bwd_inputs(12), bwd_inputs(14)],
+        kernel=ck.crp_bwd_pass,
+        plain=lambda lv, st, x: ck._from_slab(
+            ck.bwd_pass_plain(lv, st, x, B_LANES), B_LANES),
+        poison=_poison_pass_nan, nan_must=(0,),
+        bytes=B_LANES * fl * (blocks * (3 * n2 + NB * m) + NB * m
+                              + n_pad * NB * m),
+        flops=cols * 6 * n2 * m,
+        bytes_per_level_sum=cols * fl * (3 * n2 + 3 * NB * m + NB * m))
     # K4: invert the root block and apply it to the 12 (timed) or 14 border
     # columns; in the solve pass, apply the stored inverse to one rhs column.
     m = 12
@@ -364,26 +464,30 @@ def check_kernels(torch, ck, ch, dev):
     records = {}
     for name, case in cases.items():
         abs_err = rel_err = 0.0
+        flat = case.get("flat", _tuple)
         for args in case["inputs"] + case.get("extra", []):
-            got = _tuple(case["kernel"](*args))
-            ref = _tuple(case["plain"](*args))
+            got = flat(case["kernel"](*args))
+            ref = flat(case["plain"](*args))
             torch.cuda.synchronize()
             a, r = _compare(torch, got, ref)
             abs_err, rel_err = max(abs_err, a), max(rel_err, r)
         _require(rel_err <= TOL_REL,
                  f"{name}: kernel vs twin relative error {rel_err:.3e} > {TOL_REL}")
         # NaN lane: an indefinite pivot (or a NaN factor) poisons one lane.
-        args = [a.clone() if hasattr(a, "clone") else a
-                for a in case["inputs"][0]]
+        args = _clone(case["inputs"][0])
         col = 1
         case["poison"](torch, args, col)
-        got = _tuple(case["kernel"](*args))
-        ref = _tuple(case["plain"](*args))
+        got = flat(case["kernel"](*args))
+        ref = flat(case["plain"](*args))
         torch.cuda.synchronize()
-        _require(_nan_lane_ok(torch, got, col),
-                 f"{name}: the NaN lane leaked or vanished")
-        _require(_nan_lane_ok(torch, ref, col),
-                 f"{name}: twin NaN lane leaked or vanished")
+        if "nan_must" in case:
+            nan_ok = lambda outs: _nan_pass_ok(torch, outs, col,
+                                               {i % len(outs)
+                                                for i in case["nan_must"]})
+        else:
+            nan_ok = lambda outs: _nan_lane_ok(torch, outs, col)
+        _require(nan_ok(got), f"{name}: the NaN lane leaked or vanished")
+        _require(nan_ok(ref), f"{name}: twin NaN lane leaked or vanished")
         if name == "chain_factor":
             _require(not bool(torch.isnan(got[0][:2]).any()),
                      "chain_factor: NaN before the indefinite block")
@@ -397,6 +501,7 @@ def check_kernels(torch, ck, ch, dev):
                 case["plain"](*a)
 
         ms = _time_ms(torch, run_kernel, 50)
+        device_ms = _device_ms(torch, run_kernel, SYMBOLS[name], 20)
         plain_ms = _time_ms(torch, run_plain, 3)
         t_bytes = case["bytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = case["flops"] / FP32_FLOP_PER_S * 1e3
@@ -406,8 +511,13 @@ def check_kernels(torch, ck, ch, dev):
             launches=0, max_abs_err=abs_err, max_rel_err=rel_err,
             ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
-            library_ms=None, launches_per_pass=len(case["inputs"]),
+            library_ms=None, device_ms=device_ms,
+            launches_per_pass=len(case["inputs"]),
             bytes=case["bytes"], flops=case["flops"])
+        if "bytes_per_level_sum" in case:
+            records[name]["bound_ms_per_level_sum"] = max(
+                case["bytes_per_level_sum"] / HBM_BYTES_PER_S,
+                case["flops"] / FP32_FLOP_PER_S) * 1e3
         if name in CHAIN_DEPTH:
             # what the T dependent steps alone cost at the card's highest
             # SM clock, whatever the bytes
@@ -663,8 +773,7 @@ def profile_iterations(torch, ck, ch, can, v0s, bodies):
     from tol_tpu_torch.solver.alm import make_kernel
     from tol_tpu_torch.solver.kkt_condensed import make_condensed_kkt
 
-    ours = ("level_kernel", "root_kernel", "chain_factor_kernel",
-            "chain_rhs_forward_kernel", "chain_back_sub_kernel")
+    ours = tuple(SYMBOLS.values())
     out = {}
     for name, opts, refine, chain, p in bodies:
         kern = make_kernel(can, make_condensed_kkt(can, refine=refine,
@@ -723,16 +832,16 @@ def main() -> int:
         built = _build.build()
         for name in built:
             _build.load_library(name)
+        ptxas = _ptxas_by_kernel([report for _, report in built.values()])
         print(json.dumps(dict(
             phase="build", seconds=time.time() - t0,
             libraries={name: path for name, (path, _) in built.items()},
-            ptxas=[ln for _, report in built.values()
-                   for ln in report.splitlines()
-                   if "registers" in ln or "spill" in ln
-                   or "entry function" in ln])), flush=True)
+            ptxas_by_kernel=ptxas)), flush=True)
 
         t0 = time.time()
         records = check_kernels(torch, ck, ch, dev)
+        for name, rec in records.items():
+            rec["ptxas"] = ptxas.get(name)
         print(json.dumps(dict(phase="kernels", seconds=time.time() - t0,
                               tolerance_rel=TOL_REL)), flush=True)
 

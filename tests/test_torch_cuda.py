@@ -122,3 +122,78 @@ def test_cuda_chain_wrappers_refuse_float64(cuda_device):
         ch.chain_eliminate(z(2, 4, 11, 11), z(2, 4, 11, 11), z(2, 4, 11, 12))
     with pytest.raises(TypeError, match="float32"):
         ch.chain_back_sub(z(2, 4, 11, 13), z(2, 4, 11, 11), z(2, 13))
+
+
+def _flagship_chains(rng, m):
+    """B=128 chains of T=100 blocks padded to 128 (7 CR levels), on the CPU."""
+    M, O, F = _chains(rng, 128, 100, 11, m)
+    M, O, n_pad = ck._pad_chain(M, O)
+    return M, O, ck.crp_pad_rhs(F, n_pad)
+
+
+def _flat(levels, stack, *rest):
+    return [t for lv in levels for t in lv] + list(stack) + list(rest)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [12, 14])
+def test_cuda_factor_pass_matches_twin(cuda_device, m):
+    """K1, one launch for all 7 levels, against factor_fwd_pass_plain."""
+    M, O, F = _flagship_chains(np.random.default_rng(13), m)
+    want = _flat(*ck.factor_fwd_pass_plain(ck._to_slab(M), ck._to_slab(O),
+                                           ck._to_slab(F), 128))
+    got = _flat(*ck.crp_factor_fwd_pass(*[t.to(cuda_device) for t in (M, O, F)]))
+    assert len(got) == len(want) == 4 * 7 + 2
+    assert max(_rel(g, w) for g, w in zip(got, want)) < TOL_REL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 12, 14])
+def test_cuda_bwd_pass_matches_twin(cuda_device, m):
+    """K3, one launch for all 7 levels, on a factor made by the twin."""
+    rng = np.random.default_rng(14)
+    M, O, F = _flagship_chains(rng, 12)
+    levels, _, _, _ = ck.factor_fwd_pass_plain(ck._to_slab(M), ck._to_slab(O),
+                                               ck._to_slab(F), 128)
+    stack = [torch.as_tensor(rng.normal(size=(11, m, lv[0].shape[2])),
+                             dtype=torch.float32) for lv in levels]
+    x = torch.as_tensor(rng.normal(size=(11, m, 128)), dtype=torch.float32)
+    want = ck._from_slab(ck.bwd_pass_plain(levels, stack, x, 128), 128)
+    dev = lambda ts: [t.to(cuda_device) for t in ts]
+    got = ck.crp_bwd_pass([tuple(dev(lv)) for lv in levels], dev(stack),
+                          x.to(cuda_device))
+    assert got.shape == (128, 128, 11, m)
+    assert _rel(got, want) < TOL_REL
+
+
+@pytest.mark.cuda
+def test_cuda_passes_keep_an_indefinite_pivot_in_its_lane(cuda_device):
+    M, O, F = _flagship_chains(np.random.default_rng(15), 12)
+    M[1, 5] = -torch.eye(11)
+    levels, stack, Mr, Fr = ck.crp_factor_fwd_pass(
+        *[t.to(cuda_device) for t in (M, O, F)])
+    _, x = ck.crp_root(Mr, Fr, invert=True)
+    X = ck.crp_bwd_pass(levels, stack, x)
+    lane1 = [i == 1 for i in range(128)]
+    for t in _flat(levels, stack):
+        assert torch.isnan(t).reshape(-1, 128).any(0).tolist() in (
+            lane1, [False] * 128)
+    for t in (Mr, Fr):
+        assert torch.isnan(t).reshape(-1, 128).any(0).tolist() == lane1
+    assert torch.isnan(X).flatten(1).any(1).tolist() == lane1
+
+
+@pytest.mark.cuda
+def test_cuda_solves_launch_each_pass_kernel_once(cuda_device):
+    """crp_factor_solve: one K1, one K4, one K3; crp_solve: a K2 per level,
+    one K4, one K3."""
+    M, O, F = _flagship_chains(np.random.default_rng(16), 12)
+    ck.reset_launch_counts()
+    levels, root, _ = ck.crp_factor_solve(
+        *[t.to(cuda_device) for t in (M[:, :100], O[:, :100], F[:, :100])])
+    counts = lambda: {k.__name__: k.launches for k in ck.KERNELS}
+    assert counts() == dict(crp_factor_fwd_pass=1, crp_fwd_level=0,
+                            crp_bwd_pass=1, crp_root=1, crp_factor_level=0)
+    ck.crp_solve(levels, root, F[..., :1].to(cuda_device))
+    assert counts() == dict(crp_factor_fwd_pass=1, crp_fwd_level=7,
+                            crp_bwd_pass=2, crp_root=2, crp_factor_level=0)

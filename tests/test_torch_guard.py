@@ -80,8 +80,10 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
     slab = z(11, 11, 4)
     for call in (
             lambda: ck.crp_factor_level(slab, slab, slab, slab),
-            lambda: ck.crp_factor_fwd_level(slab, slab, slab, slab,
-                                            z(11, 12, 4), z(11, 12, 4)),
+            lambda: ck.crp_factor_fwd_pass(z(4, 8, 11, 11), z(4, 8, 11, 11),
+                                           z(4, 8, 11, 12)),
+            lambda: ck.crp_bwd_pass([(slab, slab, slab)], [z(11, 12, 4)],
+                                    z(11, 12, 2)),
             lambda: ch._factor_eliminate_batched(z(3, 11, 11, 4),
                                                  z(3, 11, 11, 4),
                                                  z(3, 11, 14, 4)),

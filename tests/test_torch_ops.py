@@ -177,16 +177,59 @@ def test_crp_indefinite_pivot_is_nan_in_that_lane_only():
 
 
 _SHIM = r"""
+#include <vector>
 #include "crkern_block.cuh"
+template <typename T>
+void factor_fwd(const T* Mo, const T* Me, const T* OL, const T* OR,
+                const T* Fo, const T* Fe, T* a, T* b, T* c, T* d, T* e, T* f,
+                long L, int m) {
+  for (long k = 0; k < L; ++k)
+    crk::factor_fwd_column<T>(Mo + k, Me + k, OL + k, OR + k, Fo + k, Fe + k,
+                              a + k, b + k, c + k, d + k, e + k, f + k, L, m);
+}
+template <typename T>
+void bwd(const T* Mi, const T* OL, const T* OR, const T* fo, const T* xe,
+         const T* xs, T* xo, long L, int m) {
+  for (long k = 0; k < L; ++k)
+    crk::bwd_column<T>(Mi + k, OL + k, OR + k, fo + k, xe + k, xs + k, xo + k,
+                       L, m);
+}
+// The whole passes, lane after lane, each step's items in order.
+template <typename T>
+void factor_fwd_pass(const T* M, const T* O, const T* F, T** minv, T** ol,
+                     T** orr, T** fo, T* Mr, T* Fr, long B, int n_pad, int m) {
+  crk::LevelPtrs<T*> out{};
+  for (int l = 0; l < crk::log2_exact(n_pad); ++l) {
+    out.minv[l] = minv[l]; out.ol[l] = ol[l];
+    out.orr[l] = orr[l]; out.fo[l] = fo[l];
+  }
+  std::vector<T> smem(crk::factor_fwd_pass_floats(n_pad, m) + 1);
+  for (long n = 0; n < B; ++n)
+    crk::factor_fwd_pass(
+        crk::SerialTeam{}, crk::lanes_first_view(M, crk::NB, n, n_pad),
+        crk::lanes_first_view(O, crk::NB, n, n_pad),
+        crk::lanes_first_view(F, m, n, n_pad), out, Mr, Fr, B, n, n_pad, m,
+        smem.data());
+}
+template <typename T>
+void bwd_pass(const T** minv, const T** ol, const T** orr, const T** fo,
+              const T* x0, T* X, long B, int n_pad, int m) {
+  crk::LevelPtrs<const T*> lv{};
+  for (int l = 0; l < crk::log2_exact(n_pad); ++l) {
+    lv.minv[l] = minv[l]; lv.ol[l] = ol[l];
+    lv.orr[l] = orr[l]; lv.fo[l] = fo[l];
+  }
+  std::vector<T> smem(crk::bwd_pass_floats(n_pad, m) + 1);
+  for (long n = 0; n < B; ++n)
+    crk::bwd_pass<T>(crk::SerialTeam{}, lv, {x0 + n, B, 0},
+                     X + n * n_pad * crk::NB * m, B, n, n_pad, m, smem.data());
+}
 typedef const double* In;
 typedef double* Out;
 extern "C" {
 void h_factor_fwd(In Mo, In Me, In OL, In OR, In Fo, In Fe, Out a, Out b,
                   Out c, Out d, Out e, Out f, long L, int m) {
-  for (long k = 0; k < L; ++k)
-    crk::factor_fwd_column<double>(Mo + k, Me + k, OL + k, OR + k, Fo + k,
-                                   Fe + k, a + k, b + k, c + k, d + k, e + k,
-                                   f + k, L, m);
+  factor_fwd(Mo, Me, OL, OR, Fo, Fe, a, b, c, d, e, f, L, m);
 }
 void h_fwd(In Mi, In OL, In OR, In fo, In fe, Out fe2, Out br, long L, int m) {
   for (long k = 0; k < L; ++k)
@@ -194,14 +237,41 @@ void h_fwd(In Mi, In OL, In OR, In fo, In fe, Out fe2, Out br, long L, int m) {
                             br + k, L, m);
 }
 void h_bwd(In Mi, In OL, In OR, In fo, In xe, In xs, Out xo, long L, int m) {
-  for (long k = 0; k < L; ++k)
-    crk::bwd_column<double>(Mi + k, OL + k, OR + k, fo + k, xe + k, xs + k,
-                            xo + k, L, m);
+  bwd(Mi, OL, OR, fo, xe, xs, xo, L, m);
 }
 void h_root(In A, In F, Out R, Out X, long L, int m, int inv) {
   for (long k = 0; k < L; ++k)
     crk::root_column<double>(A + k, F + k, inv ? R + k : nullptr, X + k, L, m,
                              inv);
+}
+void h_factor_fwd_pass(In M, In O, In F, Out* minv, Out* ol, Out* orr,
+                       Out* fo, Out Mr, Out Fr, long B, int n_pad, int m) {
+  factor_fwd_pass(M, O, F, minv, ol, orr, fo, Mr, Fr, B, n_pad, m);
+}
+void h_bwd_pass(In* minv, In* ol, In* orr, In* fo, In x0, Out X, long B,
+                int n_pad, int m) {
+  bwd_pass(minv, ol, orr, fo, x0, X, B, n_pad, m);
+}
+// float32, as the card runs them (built without contraction into FMAs)
+void f_factor_fwd(const float* Mo, const float* Me, const float* OL,
+                  const float* OR, const float* Fo, const float* Fe, float* a,
+                  float* b, float* c, float* d, float* e, float* f, long L,
+                  int m) {
+  factor_fwd(Mo, Me, OL, OR, Fo, Fe, a, b, c, d, e, f, L, m);
+}
+void f_bwd(const float* Mi, const float* OL, const float* OR, const float* fo,
+           const float* xe, const float* xs, float* xo, long L, int m) {
+  bwd(Mi, OL, OR, fo, xe, xs, xo, L, m);
+}
+void f_factor_fwd_pass(const float* M, const float* O, const float* F,
+                       float** minv, float** ol, float** orr, float** fo,
+                       float* Mr, float* Fr, long B, int n_pad, int m) {
+  factor_fwd_pass(M, O, F, minv, ol, orr, fo, Mr, Fr, B, n_pad, m);
+}
+void f_bwd_pass(const float** minv, const float** ol, const float** orr,
+                const float** fo, const float* x0, float* X, long B, int n_pad,
+                int m) {
+  bwd_pass(minv, ol, orr, fo, x0, X, B, n_pad, m);
 }
 }
 """
@@ -217,14 +287,20 @@ def host_kernels(tmp_path_factory):
     src = d / "shim.cpp"
     src.write_text(_SHIM)
     lib = d / "libcrkern_host.so"
-    subprocess.run([gxx, "-O2", "-shared", "-fPIC", "-std=c++17", "-I", CSRC,
-                    "-o", str(lib), str(src)], check=True)
+    subprocess.run([gxx, "-O2", "-ffp-contract=off", "-shared", "-fPIC",
+                    "-std=c++17", "-I", CSRC, "-o", str(lib), str(src)],
+                   check=True)
     so = ctypes.CDLL(str(lib))
     P, Li, I = ctypes.c_void_p, ctypes.c_long, ctypes.c_int
     so.h_factor_fwd.argtypes = [P] * 12 + [Li, I]
     so.h_fwd.argtypes = [P] * 7 + [Li, I]
     so.h_bwd.argtypes = [P] * 7 + [Li, I]
     so.h_root.argtypes = [P] * 4 + [Li, I, I]
+    for prefix in ("h_", "f_"):
+        getattr(so, prefix + "factor_fwd_pass").argtypes = [P] * 9 + [Li, I, I]
+        getattr(so, prefix + "bwd_pass").argtypes = [P] * 6 + [Li, I, I]
+    so.f_factor_fwd.argtypes = [P] * 12 + [Li, I]
+    so.f_bwd.argtypes = [P] * 7 + [Li, I]
     return so
 
 
@@ -269,3 +345,126 @@ def test_kernel_device_math_matches_twins(host_kernels, m):
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0,
                                    atol=TOL * max(1.0, w.abs().max().item()))
+
+
+def _ptrs(ts):
+    return (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
+
+
+def _host_factor_fwd_pass(so, M, O, F, prefix="h_"):
+    """K1's pass routine (g++; float64, or float32 with ``prefix="f_"``) on
+    batch-first M, O, F -> (levels, stack, M_root, F_root) as the twin
+    returns them."""
+    B, n_pad, _, m = F.shape
+    new = lambda w, h: torch.empty(11, w, h * B, dtype=F.dtype)
+    hs = [n_pad >> (l + 1) for l in range(n_pad.bit_length() - 1)]
+    levels = [(new(11, h), new(11, h), new(11, h)) for h in hs]
+    stack = [new(m, h) for h in hs]
+    Mr, Fr = new(11, 1), new(m, 1)
+    getattr(so, prefix + "factor_fwd_pass")(
+        M.data_ptr(), O.data_ptr(), F.data_ptr(),
+        *[_ptrs([lv[i] for lv in levels]) for i in range(3)], _ptrs(stack),
+        Mr.data_ptr(), Fr.data_ptr(), B, n_pad, m)
+    return levels, stack, Mr, Fr
+
+
+def _host_bwd_pass(so, levels, stack, x, prefix="h_"):
+    B, m = x.shape[2], x.shape[1]
+    n_pad = 1 << len(levels)
+    X = torch.empty(B, n_pad, 11, m, dtype=x.dtype)
+    getattr(so, prefix + "bwd_pass")(
+        *[_ptrs([lv[i] for lv in levels]) for i in range(3)], _ptrs(stack),
+        x.data_ptr(), X.data_ptr(), B, n_pad, m)
+    return X
+
+
+def _flat(levels, stack, *rest):
+    return [t for lv in levels for t in lv] + list(stack) + list(rest)
+
+
+@pytest.mark.parametrize("m", [12, 1])
+def test_kernel_pass_math_matches_pass_twins(host_kernels, m):
+    """K1's and K3's whole-pass routines (n_pad = 16: 4 levels, 3 lanes),
+    compiled for the host in float64 and run step by step, against
+    factor_fwd_pass_plain and bwd_pass_plain."""
+    rng = np.random.default_rng(11)
+    B, n_pad = 3, 16
+    M, O, F = (torch.as_tensor(x) for x in _chains(rng, B, n_pad, 11, m))
+    want = tck.factor_fwd_pass_plain(tck._to_slab(M), tck._to_slab(O),
+                                     tck._to_slab(F), B)
+    got = _host_factor_fwd_pass(host_kernels, M, O, F)
+    for g, w in zip(_flat(*got), _flat(*want), strict=True):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0,
+                                   atol=TOL * max(1.0, w.abs().max().item()))
+    levels, stack, Mr, Fr = want
+    x = torch.as_tensor(rng.normal(size=(11, m, B)))
+    got = _host_bwd_pass(host_kernels, levels, stack, x)
+    want = tck._from_slab(tck.bwd_pass_plain(levels, stack, x, B), B)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                               atol=TOL * max(1.0, want.abs().max().item()))
+
+
+def test_kernel_pass_math_keeps_an_indefinite_pivot_in_its_lane(host_kernels):
+    """Lane 1 has an indefinite level-0 pivot: every output of the host-built
+    passes is NaN in lane 1 or nowhere, and the root and the solution are
+    NaN there; lanes 0 and 2 stay finite and agree with the twins."""
+    rng = np.random.default_rng(12)
+    B, n_pad, m = 3, 16, 2
+    M, O, F = (torch.as_tensor(x) for x in _chains(rng, B, n_pad, 11, m))
+    M[1, 5] = -torch.eye(11, dtype=torch.float64)
+    levels, stack, Mr, Fr = _host_factor_fwd_pass(host_kernels, M, O, F)
+    x = torch.as_tensor(rng.normal(size=(11, m, B)))
+    X = _host_bwd_pass(host_kernels, levels, stack, x)
+    slabs = _flat(levels, stack, Mr, Fr)
+    for t in slabs:
+        lanes = torch.isnan(t).reshape(-1, B).any(0).tolist()
+        assert lanes in ([False, True, False], [False, False, False])
+    for t in (Mr, Fr):
+        assert torch.isnan(t).reshape(-1, B).any(0).tolist() == [False, True,
+                                                                   False]
+    assert torch.isnan(X).flatten(1).any(1).tolist() == [False, True, False]
+    want = tck.factor_fwd_pass_plain(tck._to_slab(M), tck._to_slab(O),
+                                     tck._to_slab(F), B)
+    for g, w in zip(slabs, _flat(*want), strict=True):
+        keep = ~torch.isnan(w)
+        assert torch.equal(torch.isnan(g), ~keep)
+        np.testing.assert_allclose(g[keep].numpy(), w[keep].numpy(), rtol=0,
+                                   atol=TOL * max(1.0, w[keep].abs().max().item()))
+
+
+@pytest.mark.parametrize("m", [12, 1])
+def test_kernel_passes_are_the_level_loop_bitwise(host_kernels, m):
+    """Same arithmetic, not only the same values: in float32, with no
+    contraction into FMAs, K1's and K3's pass routines give the very bits of
+    the per-level column routines (factor_fwd_column, bwd_column) driven
+    level by level with the even/odd split, shifts and interleave in torch
+    (n_pad = 16: 4 levels, 3 lanes)."""
+    rng = np.random.default_rng(17)
+    B, n_pad = 3, 16
+    M, O, F = (torch.as_tensor(x, dtype=torch.float32)
+               for x in _chains(rng, B, n_pad, 11, m))
+    so = host_kernels
+    # the level loop
+    Ms, Os, Fs = tck._to_slab(M), tck._to_slab(O), tck._to_slab(F)
+    levels, stack = [], []
+    while Ms.shape[2] > B:
+        (Me, Mo), (OL, OR), (Fe, Fo) = (tck._split_oe(t, B) for t in (Ms, Os, Fs))
+        outs = [torch.empty_like(t) for t in (Mo, Mo, Mo, Mo, Fo, Fo)]
+        Minv, Mhalf, Onext, S, Fe2, brF = _call(
+            so.f_factor_fwd, [Mo, Me, OL, OR, Fo, Fe], outs, Mo.shape[2], m)
+        Ms = (Mhalf - tck._shift_fwd(S, B)).contiguous()
+        Os = Onext
+        Fs = (Fe2 - tck._shift_fwd(brF, B)).contiguous()
+        levels.append((Minv, OL, OR))
+        stack.append(Fo)
+    got = _host_factor_fwd_pass(so, M, O, F, prefix="f_")
+    for g, w in zip(_flat(*got), _flat(levels, stack, Ms, Fs), strict=True):
+        assert torch.equal(g, w)
+    x = torch.as_tensor(rng.normal(size=(11, m, B)), dtype=torch.float32)
+    X = _host_bwd_pass(so, levels, stack, x, prefix="f_")
+    for (Minv, OL, OR), fo in zip(reversed(levels), reversed(stack)):
+        xs = tck._shift_bwd(x, B).contiguous()
+        xo = _call(so.f_bwd, [Minv, OL, OR, fo, x, xs], [torch.empty_like(fo)],
+                   fo.shape[2], m)[0]
+        x = tck._interleave(x, xo, B)
+    assert torch.equal(X, tck._from_slab(x, B))

@@ -1,59 +1,126 @@
-// Cyclic-reduction level kernels for Hopper (sm_90a): K1-K5.
+// Cyclic-reduction kernels for Hopper (sm_90a): K1-K5.
 //
 // They replace the Pallas TPU kernels of tol_tpu/ops/crkern.py:
-//   K5 crp_factor_level      <- crkern.py:_factor_kernel (K1 without rhs)
-//   K1 crp_factor_fwd_level  <- crkern.py:_factor_fwd_kernel
-//   K2 crp_fwd_level         <- crkern.py:_fwd_kernel
-//   K3 crp_bwd_level         <- crkern.py:_bwd_kernel
-//   K4 crp_root              <- crkern.py:_root_kernel + _root_solve_kernel
+//   K1 crp_factor_fwd_pass  <- crkern.py:_factor_fwd_kernel, all levels
+//   K2 crp_fwd_level        <- crkern.py:_fwd_kernel
+//   K3 crp_bwd_pass         <- crkern.py:_bwd_kernel, all levels
+//   K4 crp_root             <- crkern.py:_root_kernel + _root_solve_kernel
+//   K5 crp_factor_level     <- crkern.py:_factor_kernel (K1 without rhs)
 // and inline the slab helpers those call (chainkern.py:_chol_slab,
 // _spd_inverse_slab, _mm_slab, _mm_tn_slab; crkern.py:_mm_nt_slab) as the
 // __host__ __device__ routines of crkern_block.cuh.
 //
-// What bounds them on an H100: bytes.  K1 moves 1,441 floats per
-// (block, lane) column at m = 12 (reads of Mo's lower triangle, Me, OL, OR,
-// Fo, Fe and writes of Minv, Mhalf, Onext, S, Fe2, brF) against ~12 kFLOP
-// of fp32 arithmetic: ~2 FLOP per byte, far below the ~20 FLOP per byte at which
-// the card's fp32 units (67 TFLOP/s) would take over from its memory
-// (3.35 TB/s).  K2-K4 are lighter still; K5 moves 913 floats per column
-// for K1's factor arithmetic without the rhs part.
+// K1 and K3 are whole-pass kernels: one launch runs every CR level of a
+// pass, one thread block per lane.  The Pallas kernels they replace run
+// one grid per level, with the even/odd split, the one-block shifts and
+// the interleave between levels done by XLA; a lane's levels depend only
+// on that lane, so here a __syncthreads() takes the place of the launch
+// boundary and that plumbing is index arithmetic.
 //
-// Design: one thread per slab column (block k, lane n), in the batch-last
-// slab layout (i, j, k*B + n) of the JAX package, so the 32 threads of a
-// warp read 32 consecutive floats of every operand entry and each load
-// coalesces into full 128-byte lines.  Every input is read from device
-// memory once and every output written once; the 11x11 pivot inverse
-// lives in registers (what does not fit spills to thread-local memory,
-// which ptxas reports at build time).  Nothing is staged in shared memory
-// and nothing is synchronised.  Known limits, left to later work: the
-// narrow last levels (1-4 blocks x B lanes) leave most SMs idle, and one
-// launch per level per pass pays launch latency 7 times per solve.
+// What bounds them on an H100: by the bytes a pass must move, memory
+// (about 2 FLOP per byte against the ~20 at which the 67 TFLOP/s fp32 units
+// would take over from the 3.35 TB/s HBM): level-0 inputs read once
+// (K1: M, O, F; K3: the factor, the saved rhs, the root solution) and
+// outputs written once (K1: every level's Minv, OL, OR, Fo and the root
+// M, F; K3: the solution).  What bounds them in fact is the layout of the
+// factor: K2, K4 and K3 read it as batch-last slabs (i, j, k*B + n), so
+// with one lane per thread block every slab entry is a lone 4-byte access,
+// which costs an SM several cycles as a store and about a third of that as
+// a load (PERF.md, findings on the whole-pass kernels).  What the design
+// does:
+//   - Levels >= 1 never touch device memory: K1 keeps each level's M, O, F
+//     in shared memory, ping-ponging between a region of n_pad/2 and one of
+//     n_pad/4 blocks, beside the level's pivot inverses (175 KB at n_pad =
+//     128, m = 12; 183 KB at m = 14); K3 keeps x and the residuals (118 KB
+//     at m = 14).
+//   - Work is spread over the block's 512 threads by output entry, not by
+//     (block, lane) column: a Cholesky column is one item per row (one
+//     barrier per column), then one item per inverse column, per column of
+//     S, Onext, Mhalf, and per rhs column of brF, Fe2 (K1); one item per
+//     solution entry (K3).  Per-thread state is a few 11-vectors, not an
+//     11x11 inverse in registers (128 registers, a few bytes spilled,
+//     against 255 registers and 864 B of spill of the per-level K1).
+//   - K1 hides what it can of its slab stores behind latency-bound steps
+//     (crkern_block.cuh) and reads level 0 batch-first (B, n_pad, 11, .),
+//     which coalesces and drops _to_slab (a batch-last read of level 0 took
+//     38% more device time; PERF.md).
+//   - Contiguous operands (shared memory, batch-first input) have a stride
+//     of 1 fixed at compile time, so their addresses are constant offsets.
 //
 // Each entry point launches on the given stream, allocates nothing and
 // returns cudaGetLastError() (0 on success).
 #include <cuda_runtime.h>
+
+#include <mutex>
 
 #include "crkern_block.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kPassThreads = 512;  // one thread block per lane
 
 inline int blocks_for(long L) { return (int)((L + kThreads - 1) / kThreads); }
 
-__global__ void __launch_bounds__(kThreads)
-factor_fwd_level_kernel(const float* __restrict__ Mo, const float* __restrict__ Me,
-                        const float* __restrict__ OL, const float* __restrict__ OR,
-                        const float* __restrict__ Fo, const float* __restrict__ Fe,
-                        float* __restrict__ Minv, float* __restrict__ Mhalf,
-                        float* __restrict__ Onext, float* __restrict__ S,
-                        float* __restrict__ Fe2, float* __restrict__ brF,
-                        long L, int m) {
-  const long c = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= L) return;
-  crk::factor_fwd_column<float>(Mo + c, Me + c, OL + c, OR + c, Fo + c, Fe + c,
-                                Minv + c, Mhalf + c, Onext + c, S + c, Fe2 + c,
-                                brF + c, L, m);
+// K1: thread block n runs the factor pass of lane n, from the batch-first
+// level 0 M, O (B, n_pad, 11, 11) and F (B, n_pad, 11, m).
+__global__ void __launch_bounds__(kPassThreads, 1)
+factor_fwd_pass_kernel(const float* __restrict__ M, const float* __restrict__ O,
+                       const float* __restrict__ F,
+                       const crk::LevelPtrs<float*> out, float* __restrict__ Mroot,
+                       float* __restrict__ Froot, long B, int n_pad, int m) {
+  extern __shared__ float smem[];
+  const long n = blockIdx.x;
+  crk::factor_fwd_pass(crk::BlockTeam{},
+                       crk::lanes_first_view(M, crk::NB, n, n_pad),
+                       crk::lanes_first_view(O, crk::NB, n, n_pad),
+                       crk::lanes_first_view(F, m, n, n_pad), out, Mroot, Froot,
+                       B, n, n_pad, m, smem);
+}
+
+// K3: thread block n back-substitutes lane n into X (B, n_pad, 11, m).
+__global__ void __launch_bounds__(kPassThreads, 1)
+bwd_pass_kernel(const crk::LevelPtrs<const float*> lv,
+                const float* __restrict__ x0, float* __restrict__ X, long B,
+                int n_pad, int m) {
+  extern __shared__ float smem[];
+  const long n = blockIdx.x;
+  crk::bwd_pass<float>(crk::BlockTeam{}, lv, {x0 + n, B, 0},
+                       X + n * n_pad * crk::NB * m, B, n, n_pad, m, smem);
+}
+
+// Raise a kernel's dynamic shared-memory limit (48 KB by default) to
+// `bytes`, once per device and size: `allowed` keeps the largest limit set
+// so far on each device.  The attribute call fails for more than the card
+// has.
+constexpr int kMaxDevices = 64;
+template <typename K>
+cudaError_t allow_smem(K kernel, long bytes, long (&allowed)[kMaxDevices]) {
+  static std::mutex mu;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  if (dev < kMaxDevices && bytes <= allowed[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
+  if (err == cudaSuccess && dev < kMaxDevices) allowed[dev] = bytes;
+  return err;
+}
+long factor_fwd_pass_smem[kMaxDevices] = {};
+long bwd_pass_smem[kMaxDevices] = {};
+
+template <typename P>
+crk::LevelPtrs<P> level_ptrs(P const* minv, P const* ol, P const* orr,
+                             P const* fo, int n_levels) {
+  crk::LevelPtrs<P> lv{};
+  for (int l = 0; l < n_levels; ++l) {
+    lv.minv[l] = minv[l];
+    lv.ol[l] = ol[l];
+    lv.orr[l] = orr[l];
+    lv.fo[l] = fo[l];
+  }
+  return lv;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -80,17 +147,6 @@ fwd_level_kernel(const float* __restrict__ Minv, const float* __restrict__ OL,
 }
 
 __global__ void __launch_bounds__(kThreads)
-bwd_level_kernel(const float* __restrict__ Minv, const float* __restrict__ OL,
-                 const float* __restrict__ OR, const float* __restrict__ fo,
-                 const float* __restrict__ xe, const float* __restrict__ xs,
-                 float* __restrict__ xo, long L, int m) {
-  const long c = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= L) return;
-  crk::bwd_column<float>(Minv + c, OL + c, OR + c, fo + c, xe + c, xs + c,
-                         xo + c, L, m);
-}
-
-__global__ void __launch_bounds__(kThreads)
 root_kernel(const float* __restrict__ A, const float* __restrict__ F,
             float* __restrict__ Rinv, float* __restrict__ X, long L, int m,
             int invert) {
@@ -104,12 +160,20 @@ root_kernel(const float* __restrict__ A, const float* __restrict__ F,
 
 extern "C" {
 
-int crp_factor_fwd_level(const float* Mo, const float* Me, const float* OL,
-                         const float* OR, const float* Fo, const float* Fe,
-                         float* Minv, float* Mhalf, float* Onext, float* S,
-                         float* Fe2, float* brF, long L, int m, void* stream) {
-  factor_fwd_level_kernel<<<blocks_for(L), kThreads, 0, (cudaStream_t)stream>>>(
-      Mo, Me, OL, OR, Fo, Fe, Minv, Mhalf, Onext, S, Fe2, brF, L, m);
+// K1 over B lanes of an n_pad-block chain (n_pad a power of two, at most
+// 2^kMaxLevels), level 0 batch-first.  minv, ol, orr, fo: per level l, the
+// (11, w, h_l * B) slabs to fill, h_l = n_pad >> (l + 1).
+int crp_factor_fwd_pass(const float* M, const float* O, const float* F,
+                        float* const* minv, float* const* ol, float* const* orr,
+                        float* const* fo, float* Mroot, float* Froot, long B,
+                        int n_pad, int m, void* stream) {
+  const long smem = crk::factor_fwd_pass_floats(n_pad, m) * (long)sizeof(float);
+  cudaError_t err =
+      allow_smem(factor_fwd_pass_kernel, smem, factor_fwd_pass_smem);
+  if (err != cudaSuccess) return (int)err;
+  factor_fwd_pass_kernel<<<(int)B, kPassThreads, smem, (cudaStream_t)stream>>>(
+      M, O, F, level_ptrs(minv, ol, orr, fo, crk::log2_exact(n_pad)), Mroot,
+      Froot, B, n_pad, m);
   return (int)cudaGetLastError();
 }
 
@@ -129,11 +193,18 @@ int crp_fwd_level(const float* Minv, const float* OL, const float* OR,
   return (int)cudaGetLastError();
 }
 
-int crp_bwd_level(const float* Minv, const float* OL, const float* OR,
-                  const float* fo, const float* xe, const float* xs, float* xo,
-                  long L, int m, void* stream) {
-  bwd_level_kernel<<<blocks_for(L), kThreads, 0, (cudaStream_t)stream>>>(
-      Minv, OL, OR, fo, xe, xs, xo, L, m);
+// K3 over B lanes: the factor's per-level slabs, the root solution x0
+// (11, m, B) -> X (B, n_pad, 11, m).
+int crp_bwd_pass(const float* const* minv, const float* const* ol,
+                 const float* const* orr, const float* const* fo,
+                 const float* x0, float* X, long B, int n_pad, int m,
+                 void* stream) {
+  const long smem = crk::bwd_pass_floats(n_pad, m) * (long)sizeof(float);
+  cudaError_t err = allow_smem(bwd_pass_kernel, smem, bwd_pass_smem);
+  if (err != cudaSuccess) return (int)err;
+  bwd_pass_kernel<<<(int)B, kPassThreads, smem, (cudaStream_t)stream>>>(
+      level_ptrs(minv, ol, orr, fo, crk::log2_exact(n_pad)), x0, X, B, n_pad,
+      m);
   return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,7 @@
-// Per-column block routines of the cyclic-reduction (CR) level kernels
-// K1-K5 (the sequential-chain kernels K6-K8 build on them in
-// chainkern_block.cuh).
+// Block routines of the cyclic-reduction (CR) kernels K1-K5 (the
+// sequential-chain kernels K6-K8 build on them in chainkern_block.cuh):
+// per-column routines first, then the whole-pass routines of K1 and K3,
+// which run the same arithmetic item by item (see "Whole-pass routines").
 //
 // A "column" is one (block k, lane n) pair of a CR level.  Every operand is
 // a slab of shape (a, b, L) in the batch-last layout of
@@ -186,9 +187,13 @@ CRK_HD void factor_column(const T* __restrict__ Mo, const T* __restrict__ Me,
   }
 }
 
-// K1 — one CR level, factor fused with the forward elimination of m rhs
-// columns (crkern._factor_fwd_kernel): K5's outputs, then
-//   g = Minv Fo, Fe2 = Fe - OL g, brF = OR^T g.
+// One level of K1 for one (block, lane) column, factor fused with the
+// forward elimination of m rhs columns (crkern._factor_fwd_kernel): K5's
+// outputs, then g = Minv Fo, Fe2 = Fe - OL g, brF = OR^T g.  No kernel
+// calls it since K1 became a whole pass; it stays as the column-by-column
+// statement of the arithmetic that factor_fwd_level spreads over items: the
+// host build holds it against the twin, and the pass against it bit for bit
+// in float32.
 template <typename T>
 CRK_HD void factor_fwd_column(const T* __restrict__ Mo, const T* __restrict__ Me,
                               const T* __restrict__ OL, const T* __restrict__ OR,
@@ -234,8 +239,10 @@ CRK_HD void fwd_column(const T* __restrict__ Minv, const T* __restrict__ OL,
   }
 }
 
-// K3 — back-substitution of one level (crkern._bwd_kernel):
+// Back-substitution of one level for one column (crkern._bwd_kernel):
 //   xo = Minv (fo - OL^T xe - OR xs),  xs = x_even shifted back one block.
+// Like factor_fwd_column, the column-by-column statement of what bwd_pass
+// computes item by item, checked the same ways; no kernel calls it.
 template <typename T>
 CRK_HD void bwd_column(const T* __restrict__ Minv, const T* __restrict__ OL,
                        const T* __restrict__ OR, const T* __restrict__ fo,
@@ -280,5 +287,341 @@ CRK_HD void root_column(const T* __restrict__ A, const T* __restrict__ F,
 }
 
 #undef CRK_AT
+
+// ---------------------------------------------------------------------------
+// Whole-pass routines: K1 crp_factor_fwd_pass and K3 crp_bwd_pass.
+//
+// One team of threads runs every CR level of one lane.  A pass is a fixed
+// sequence of steps; a step is a set of independent work items (each item
+// computes a few output entries with the column routines' arithmetic) and
+// ends at a barrier.  Team::each(n, f) runs items 0..n-1, Team::sync() is
+// the barrier: on the card a thread block strides over the items and syncs
+// (BlockTeam); on the host one thread runs them in order (SerialTeam), so
+// the g++ build of this header runs the same steps in the same order.
+// ---------------------------------------------------------------------------
+
+struct SerialTeam {
+  template <typename F>
+  CRK_HD void each(int n, F&& f) const {
+    for (int i = 0; i < n; ++i) f(i);
+  }
+  CRK_HD void sync() const {}
+};
+
+#ifdef __CUDACC__
+struct BlockTeam {
+  template <typename F>
+  CRK_HD void each(int n, F&& f) const {
+#ifdef __CUDA_ARCH__
+    for (int i = threadIdx.x; i < n; i += blockDim.x) f(i);
+#endif
+  }
+  CRK_HD void sync() const {
+#ifdef __CUDA_ARCH__
+    __syncthreads();
+#endif
+  }
+};
+#endif
+
+// The blocks of one level of one lane: entry e (= i * width + j) of block k
+// at p[e * es + k * bs].  Batch-first tensors and shared memory have
+// es = 1 (Unit: fixed at compile time, so operand addresses are constant
+// offsets), bs = block size; a batch-last slab (a, b, h * B) offset by the
+// lane (Slab: the factor K1 writes and K3 reads) has es = h * B, bs = B.
+template <typename T, bool kUnit>
+struct View {
+  T* p;
+  long es, bs;
+  CRK_HD long stride() const { return kUnit ? 1 : es; }
+  CRK_HD T* blk(int k) const { return p + k * bs; }
+  CRK_HD T& at(int k, int e) const { return p[e * stride() + k * bs]; }
+};
+template <typename T>
+using Unit = View<T, true>;
+template <typename T>
+using Slab = View<T, false>;
+
+// Level 0 of lane n for K1, batch-first (B, n_pad, NB, w).
+template <typename T>
+CRK_HD Unit<const T> lanes_first_view(const T* p, int w, long n, int n_pad) {
+  return {p + n * n_pad * NB * w, 1, (long)NB * w};
+}
+
+// Per-level slabs of a factor, level l holding n_pad >> (l + 1) blocks.
+constexpr int kMaxLevels = 16;
+template <typename P>
+struct LevelPtrs {
+  P minv[kMaxLevels];
+  P ol[kMaxLevels];
+  P orr[kMaxLevels];
+  P fo[kMaxLevels];
+};
+
+CRK_HD int log2_exact(int n) {
+  int l = 0;
+  while ((1 << l) < n) ++l;
+  return l;
+}
+
+// Shared floats K1 needs per lane: the M, O, F blocks of levels 1, 2, ...
+// ping-pong between a region of n_pad / 2 and one of n_pad / 4 blocks, and
+// the pivot inverses of one level (n_pad / 2 blocks).
+CRK_HD long factor_fwd_pass_floats(int n_pad, int m) {
+  const long blk = 2 * NB * NB + (long)NB * m;
+  return (n_pad / 2 + n_pad / 4) * blk + (long)(n_pad / 2) * NB * NB;
+}
+
+// Shared floats K3 needs per lane: x of two levels (ping-pong) and the
+// residuals r of one level, n_pad / 2 blocks of NB x m each.
+CRK_HD long bwd_pass_floats(int n_pad, int m) {
+  return 3L * (n_pad / 2) * NB * m;
+}
+
+// Row i of column j of the Cholesky factor of block k of a (only its lower
+// triangle is read), given columns 0..j-1: Lc[j * NB + i] (i >= j).  Every
+// item recomputes the pivot s_j itself, so one barrier per column suffices;
+// the arithmetic is chol_lower's.
+template <typename T, typename V>
+CRK_HD void chol_entry(const V& a, int k, T* __restrict__ Lc, int j, int i) {
+  T si = a.at(k, i * NB + j), sj = a.at(k, j * NB + j);
+  CRK_UNROLL
+  for (int c = 0; c < NB - 1; ++c) {
+    if (c < j) {
+      si = si - Lc[c * NB + j] * Lc[c * NB + i];
+      sj = sj - Lc[c * NB + j] * Lc[c * NB + j];
+    }
+  }
+  Lc[j * NB + i] = si / crk_sqrt(sj);  // NaN for a negative pivot
+}
+
+// One level of K1 for one lane: the current level (cM, cO, cF; 2h blocks)
+// -> its Minv, OL, OR, Fo slabs (o*) and the next level (nM, nO, nF; h
+// blocks, shared memory), with W (h blocks) for the pivot inverses.  As
+// factor_fwd_column:
+//   Minv = Mo^-1; next M_k = (Me - OL Minv OL^T)_k - (OR^T Minv OR)_{k-1};
+//   next O_k = -OL Minv OR;  next F_k = (Fe - OL g)_k - (OR^T g)_{k-1},
+//   g = Minv Fo.
+// The slab writes are one float each, B floats apart, and cost the SM
+// several cycles apiece: they are spread as extra items over the steps
+// (the level's OL, OR, Fo over the Cholesky columns, Minv over the two
+// product steps), and each step's items are ordered by kind so that a
+// warp's items take one branch.
+template <typename T, typename Team>
+CRK_HD void factor_fwd_level(const Team& team, const Unit<const T>& cM,
+                             const Unit<const T>& cO, const Unit<const T>& cF,
+                             const Unit<T>& nM, const Unit<T>& nO,
+                             const Unit<T>& nF, const Slab<T>& oMinv,
+                             const Slab<T>& oOL, const Slab<T>& oOR,
+                             const Slab<T>& oFo, T* __restrict__ W, int h,
+                             int m) {
+  constexpr int N2 = NB * NB;
+  const int wF = NB * m, hN = h * NB, hN2 = h * N2;
+  const long es = cO.stride(), esF = cF.stride();
+  // entry `it` of this level's OL, OR, Fo slabs (h N2 + h N2 + h wF)
+  auto copy_level = [&](int it) {
+    if (it < 2 * hN2) {
+      const int k = (it % hN2) / N2, e = it % N2;
+      (it < hN2 ? oOL : oOR).at(k, e) = cO.at(2 * k + (it >= hN2), e);
+    } else {
+      const int k = (it - 2 * hN2) / wF, e = (it - 2 * hN2) % wF;
+      oFo.at(k, e) = cF.at(2 * k + 1, e);
+    }
+  };
+  auto copy_minv = [&](int it) { oMinv.at(it / N2, it % N2) = W[it]; };
+  const int n_copy = 2 * hN2 + h * wF;
+
+  // Cholesky of the odd pivots M_{2k+1}, column by column, into the (still
+  // free) slot of next M_k; a twelfth of the level's OL, OR, Fo entries go
+  // out beside each column (the rest in the last step).
+  for (int j = 0; j < NB; ++j) {
+    const int nj = h * (NB - j), c0 = n_copy * j / 12,
+              c1 = n_copy * (j + 1) / 12;
+    team.each(nj + c1 - c0, [&](int it) {
+      if (it < nj) {
+        const int k = it / (NB - j);
+        chol_entry(cM, 2 * k + 1, nM.blk(k), j, j + it % (NB - j));
+      } else {
+        copy_level(c0 + it - nj);
+      }
+    });
+    team.sync();
+  }
+  // Column q of the pivot inverse (inverse_column) -> W.
+  team.each(hN, [&](int it) {
+    const int k = it / NB, q = it % NB;
+    T x[NB];
+    inverse_column(*reinterpret_cast<const T(*)[NB][NB]>(nM.blk(k)), q, x);
+    CRK_UNROLL
+    for (int i = 0; i < NB; ++i) W[k * N2 + i * NB + q] = x[i];
+  });
+  team.sync();
+  // Column q of S_k = OR^T Minv OR, then column j of brF_k = OR^T Minv Fo,
+  // parked in slot k + 1 of the next level (S and brF of the last block
+  // fall off the chain); half of the Minv slab goes out.
+  team.each(hN + h * m + hN2 / 2, [&](int it) {
+    T t[NB], u[NB];
+    if (it < hN) {
+      const int k = it / NB, q = it % NB;
+      const T* OR = cO.blk(2 * k + 1);
+      matvec<NB, NB>(W + k * N2, NB, 1, OR + q * es, NB * es, t);
+      matvec<NB, NB>(OR, es, NB * es, t, 1, u);
+      if (k + 1 < h) {
+        CRK_UNROLL
+        for (int i = 0; i < NB; ++i) nM.at(k + 1, i * NB + q) = u[i];
+      }
+    } else if (it < hN + h * m) {
+      const int k = (it - hN) / m, j = (it - hN) % m;
+      matvec<NB, NB>(W + k * N2, NB, 1, cF.blk(2 * k + 1) + j * esF, m * esF,
+                     t);
+      matvec<NB, NB>(cO.blk(2 * k + 1), es, NB * es, t, 1, u);
+      if (k + 1 < h) {
+        CRK_UNROLL
+        for (int i = 0; i < NB; ++i) nF.at(k + 1, i * m + j) = u[i];
+      }
+    } else {
+      copy_minv(it - hN - h * m);
+    }
+  });
+  team.sync();
+  // Column q of next O_k, of next M_k, then column j of next F_k; the
+  // other half of the Minv slab and the last twelfth of OL, OR, Fo.
+  const int n_math = 2 * hN + h * m, n_minv = hN2 - hN2 / 2,
+            c0 = n_copy * 11 / 12;
+  team.each(n_math + n_minv + n_copy - c0, [&](int it) {
+    T t[NB], u[NB];
+    if (it < n_math) {
+      const int kind = it < hN ? 0 : it < 2 * hN ? 1 : 2;
+      const int r = it - kind * hN;
+      const int k = kind < 2 ? r / NB : r / m, q = kind < 2 ? r % NB : r % m;
+      const T* Wk = W + k * N2;
+      const T* OL = cO.blk(2 * k);
+      if (kind == 0) {
+        matvec<NB, NB>(Wk, NB, 1, cO.blk(2 * k + 1) + q * es, NB * es, t);
+        matvec<NB, NB>(OL, NB * es, es, t, 1, u);
+        CRK_UNROLL
+        for (int i = 0; i < NB; ++i) nO.at(k, i * NB + q) = -u[i];
+      } else if (kind == 1) {
+        matvec<NB, NB>(Wk, NB, 1, OL + q * NB * es, es, t);
+        matvec<NB, NB>(OL, NB * es, es, t, 1, u);
+        CRK_UNROLL
+        for (int i = 0; i < NB; ++i) {
+          const T mh = cM.at(2 * k, i * NB + q) - u[i];
+          T& d = nM.at(k, i * NB + q);
+          d = k > 0 ? mh - d : mh;
+        }
+      } else {
+        matvec<NB, NB>(Wk, NB, 1, cF.blk(2 * k + 1) + q * esF, m * esF, t);
+        matvec<NB, NB>(OL, NB * es, es, t, 1, u);
+        CRK_UNROLL
+        for (int i = 0; i < NB; ++i) {
+          const T fe2 = cF.at(2 * k, i * m + q) - u[i];
+          T& d = nF.at(k, i * m + q);
+          d = k > 0 ? fe2 - d : fe2;
+        }
+      }
+    } else if (it < n_math + n_minv) {
+      copy_minv(hN2 / 2 + it - n_math);
+    } else {
+      copy_level(c0 + it - n_math - n_minv);
+    }
+  });
+  team.sync();
+}
+
+// K1 — the whole fused factor + forward elimination of one lane
+// (crkern._factor_fwd_kernel at every level, with the even/odd split, the
+// one-block shifts and the subtractions between levels as index
+// arithmetic).  Level 0 is read from M0, O0, F0; each level's Minv, OL, OR,
+// Fo go to the slabs of `out` (lane column `lane` of B), levels >= 1 live in
+// shared memory, and the root M, F go to the slabs Mroot (NB, NB, B) and
+// Froot (NB, m, B).
+template <typename T, typename Team>
+CRK_HD void factor_fwd_pass(const Team& team, const Unit<const T>& M0,
+                            const Unit<const T>& O0, const Unit<const T>& F0,
+                            const LevelPtrs<T*>& out, T* Mroot, T* Froot, long B,
+                            long lane, int n_pad, int m, T* smem) {
+  constexpr int N2 = NB * NB;
+  const int wF = NB * m;
+  T* const region1 = smem + (long)(n_pad / 2) * (2 * N2 + wF);
+  T* const W = region1 + (long)(n_pad / 4) * (2 * N2 + wF);  // Minv of a level
+  Unit<const T> cM = M0, cO = O0, cF = F0;
+  int l = 0;
+  for (int h = n_pad / 2; h >= 1; h /= 2, ++l) {
+    T* const base = (l & 1) ? region1 : smem;
+    const long c = (l & 1) ? n_pad / 4 : n_pad / 2;
+    const Unit<T> nM{base, 1, N2}, nO{base + c * N2, 1, N2},
+        nF{base + 2 * c * N2, 1, wF};
+    const long L = h * B;
+    const Slab<T> oMinv{out.minv[l] + lane, L, B}, oOL{out.ol[l] + lane, L, B},
+        oOR{out.orr[l] + lane, L, B}, oFo{out.fo[l] + lane, L, B};
+    factor_fwd_level(team, cM, cO, cF, nM, nO, nF, oMinv, oOL, oOR, oFo, W, h,
+                     m);
+    cM = {nM.p, 1, N2};
+    cO = {nO.p, 1, N2};
+    cF = {nF.p, 1, wF};
+  }
+  team.each(N2 + wF, [&](int e) {
+    if (e < N2)
+      Mroot[e * B + lane] = cM.at(0, e);
+    else
+      Froot[(e - N2) * B + lane] = cF.at(0, e - N2);
+  });
+}
+
+// K3 — the whole back-substitution of one lane (crkern._bwd_kernel at every
+// level, with the backward shift and the interleave as index arithmetic),
+// from the root solution x0 (one block of the slab (NB, m, B)) to X, the
+// lane's (n_pad, NB, m) batch-first solution, written once.  Per level, as
+// bwd_column:
+//   xo_k = Minv_k ((fo_k - OL_k^T x_k) - OR_k x_{k+1}),  x_h = 0;
+//   next x_{2k} = x_k, next x_{2k+1} = xo_k.
+template <typename T, typename Team>
+CRK_HD void bwd_pass(const Team& team, const LevelPtrs<const T*>& lv,
+                     const Slab<const T>& x0, T* X, long B, long lane,
+                     int n_pad, int m, T* smem) {
+  const int w = NB * m;
+  const long cap = n_pad / 2;
+  T* const R = smem + 2 * cap * w;
+  const int nl = log2_exact(n_pad);
+  // the root solution, into the ping-pong buffer the root level leaves free
+  const Unit<T> root{nl > 0 ? smem + (nl & 1) * cap * w : X, 1, w};
+  team.each(w, [&](int e) { root.at(0, e) = x0.at(0, e); });
+  team.sync();
+  Unit<const T> cx{root.p, 1, w};
+  for (int l = nl - 1, h = 1; l >= 0; --l, h *= 2) {
+    const long L = h * B;
+    const Slab<const T> Minv{lv.minv[l] + lane, L, B},
+        OL{lv.ol[l] + lane, L, B}, OR{lv.orr[l] + lane, L, B},
+        fo{lv.fo[l] + lane, L, B};
+    const Unit<T> nx{l == 0 ? X : smem + (l & 1) * cap * w, 1, w};
+    // r_k(i, j) = (fo - OL^T x_k - OR x_{k+1})(i, j), each sum in index order
+    team.each(h * w, [&](int it) {
+      const int k = it / w, e = it % w, i = e / m, j = e % m;
+      T a = OL.at(k, i) * cx.at(k, j);
+      CRK_UNROLL
+      for (int c = 1; c < NB; ++c)
+        a = a + OL.at(k, c * NB + i) * cx.at(k, c * m + j);
+      const bool last = k + 1 == h;
+      T b = OR.at(k, i * NB) * (last ? T(0) : cx.at(k + 1, j));
+      CRK_UNROLL
+      for (int c = 1; c < NB; ++c)
+        b = b + OR.at(k, i * NB + c) * (last ? T(0) : cx.at(k + 1, c * m + j));
+      R[k * w + e] = (fo.at(k, e) - a) - b;
+    });
+    team.sync();
+    team.each(h * w, [&](int it) {
+      const int k = it / w, e = it % w, i = e / m, j = e % m;
+      const T* r = R + k * w + j;
+      T y = Minv.at(k, i * NB) * r[0];
+      CRK_UNROLL
+      for (int c = 1; c < NB; ++c) y = y + Minv.at(k, i * NB + c) * r[c * m];
+      nx.at(2 * k + 1, e) = y;
+      nx.at(2 * k, e) = cx.at(k, e);
+    });
+    team.sync();
+    cx = {nx.p, 1, w};
+  }
+}
 
 }  // namespace crk

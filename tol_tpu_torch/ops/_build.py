@@ -31,10 +31,10 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
 # point returns the CUDA error of its launch.
 _SIGNATURES = {
     "crkern": {
-        "crp_factor_fwd_level": [_P] * 12 + [_L, _I, _P],
+        "crp_factor_fwd_pass": [_P] * 9 + [_L, _I, _I, _P],
         "crp_factor_level": [_P] * 8 + [_L, _P],
         "crp_fwd_level": [_P] * 7 + [_L, _I, _P],
-        "crp_bwd_level": [_P] * 7 + [_L, _I, _P],
+        "crp_bwd_pass": [_P] * 6 + [_L, _I, _I, _P],
         "crp_root": [_P] * 4 + [_L, _I, _I, _P],
     },
     "chainkern": {
@@ -70,8 +70,7 @@ def build() -> dict[str, tuple[str, str]]:
     """Compile every ``csrc/*.cu`` that has no library for this source hash
     yet, one ``nvcc`` per file, all running at once.
 
-    Returns ``{name: (path of the library, ptxas report of this build or ""
-    when the library was already there)}``."""
+    Returns ``{name: (path of the library, its ptxas report)}``."""
     out_dir = os.path.join(BUILD_ROOT, _source_hash())
     os.makedirs(out_dir, exist_ok=True)
     out, running = {}, []
@@ -79,7 +78,9 @@ def build() -> dict[str, tuple[str, str]]:
         name = src[:-3]
         lib = os.path.join(out_dir, f"lib{name}.so")
         if os.path.exists(lib):
-            out[name] = (lib, "")
+            report = os.path.join(out_dir, f"ptxas_{name}.txt")
+            out[name] = (lib, open(report).read()
+                         if os.path.exists(report) else "")
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
         os.close(fd)

@@ -8,21 +8,23 @@ speed choice: sequential orders lose the flat-valley components of the
 Newton direction to the float32 noise floor and fail the S10 cost gate.
 
 Each level's blocks sit in a slab ``(a, b, p*B)`` whose entry
-``(i, j, k*B + n)`` is block k of lane n, so a level is one launch over
-all its (block, lane) columns and neighbouring lanes are neighbouring
-addresses.  Five kernels do the level math (``csrc/crkern.cu``):
+``(i, j, k*B + n)`` is block k of lane n, so neighbouring lanes are
+neighbouring addresses.  Five kernels do the level math
+(``csrc/crkern.cu``):
 
-    K5 crp_factor_level       factor one level (no rhs)
-    K1 crp_factor_fwd_level   factor one level + eliminate known rhs
+    K1 crp_factor_fwd_pass    factor + eliminate known rhs, all levels
     K2 crp_fwd_level          eliminate a new rhs against a stored level
-    K3 crp_bwd_level          back-substitute one level
+    K3 crp_bwd_pass           back-substitute, all levels
     K4 crp_root               invert/apply the root block
+    K5 crp_factor_level       factor one level (no rhs)
 
-Each wrapper below launches its kernel for a CUDA tensor and uses its plain
-PyTorch twin (same elimination order, same unrolled-Cholesky pivots) for a
-CPU tensor; nothing else selects between them.  Each counts its launches in
-``<wrapper>.launches``.  The even/odd split, the one-block shifts and the
-interleave between levels are plain torch.
+K1 and K3 run a whole pass in one launch, one thread block per lane; K2
+and K5 run one launch per level, with the even/odd split and the
+one-block shifts between levels in plain torch.  Each wrapper below
+launches its kernel for a CUDA tensor and uses its plain PyTorch twin
+(same elimination order, same unrolled-Cholesky pivots) for a CPU tensor;
+nothing else selects between them.  Each counts its launches in
+``<wrapper>.launches``.
 
 Public API (batch-first): :func:`crp_factor`, :func:`crp_factor_solve`,
 :func:`crp_solve`, :func:`crp_pad_rhs`.  Non-SPD pivots surface as NaN in
@@ -30,6 +32,8 @@ that lane only.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -174,6 +178,37 @@ def bwd_level_plain(Minv, OL, OR, fo, xe, xs):
     return _mm(Minv, fo - _mm_tn(OL, xe) - _mm(OR, xs))
 
 
+def factor_fwd_pass_plain(M, O, F, Bb):
+    """Twin of K1: every level of the fused factor + rhs elimination over
+    the slabs M, O (11, 11, n_pad*B), F (11, m, n_pad*B) -> (levels, stack,
+    M_root, F_root): per level (Minv, OL, OR) and Fo, then the root block's
+    M (11, 11, B) and F (11, m, B)."""
+    levels, stack = [], []
+    p = M.shape[2] // Bb
+    while p > 1:
+        Me, Mo = _split_oe(M, Bb)
+        OL, OR = _split_oe(O, Bb)
+        Fe, Fo = _split_oe(F, Bb)
+        Minv, Mhalf, Onext, S, Fe2, brF = factor_fwd_level_plain(
+            Mo, Me, OL, OR, Fo, Fe)
+        M = (Mhalf - _shift_fwd(S, Bb)).contiguous()
+        O = Onext
+        F = (Fe2 - _shift_fwd(brF, Bb)).contiguous()
+        levels.append((Minv, OL, OR))
+        stack.append(Fo)
+        p //= 2
+    return levels, stack, M, F
+
+
+def bwd_pass_plain(levels, stack, x, Bb):
+    """Twin of K3: back-substitute every level from the root solution x
+    (11, m, B) -> the slab (11, m, n_pad*B)."""
+    for (Minv, OL, OR), fo in zip(reversed(levels), reversed(stack)):
+        xo = bwd_level_plain(Minv, OL, OR, fo, x, _shift_bwd(x, Bb))
+        x = _interleave(x, xo, Bb)
+    return x
+
+
 def root_plain(A, F, invert):
     """Twin of K4: (A^-1, A^-1 F) when inverting, else (A, A F)."""
     R = _spd_inverse_slab(A) if invert else A
@@ -185,19 +220,25 @@ def root_plain(A, F, invert):
 # ---------------------------------------------------------------------------
 
 _NB = 11  # the kernels are built for the 11x11 node blocks
+_MAX_LEVELS = 16  # crk::kMaxLevels
 
 
-def _check(name, blocks, rhs):
-    """Validate the slabs handed to a kernel; returns (L, m)."""
-    L = blocks[0].shape[2]
-    m = rhs[0].shape[1] if rhs else 0
-    for t in blocks + rhs:
+def _check_device(name, ts):
+    for t in ts:
         if t.device.type != "cuda":
             raise ValueError(f"{name}: all operands must be CUDA tensors")
         if t.dtype != torch.float32:
             raise TypeError(f"{name}: float32 only, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")
+
+
+def _check(name, blocks, rhs):
+    """Validate the slabs handed to a kernel; returns (L, m)."""
+    L = blocks[0].shape[2]
+    m = rhs[0].shape[1] if rhs else 0
+    _check_device(name, blocks + rhs)
+    for t in blocks + rhs:
         if t.dim() != 3 or t.shape[2] != L or t.shape[0] != _NB:
             raise ValueError(f"{name}: bad slab shape {tuple(t.shape)}")
     for t in blocks:
@@ -217,20 +258,53 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def crp_factor_fwd_level(Mo, Me, OL, OR, Fo, Fe):
-    """K1 (replaces crkern.py:_factor_fwd_kernel).  Slabs (11, 11, L) and
-    rhs (11, m, L) -> (Minv, Mhalf, Onext, S, Fe2, brF)."""
-    if Mo.device.type == "cpu":
-        return factor_fwd_level_plain(Mo, Me, OL, OR, Fo, Fe)
-    L, m = _check("crp_factor_fwd_level", [Mo, Me, OL, OR], [Fo, Fe])
-    outs = [torch.empty_like(Mo) for _ in range(4)] + \
-        [torch.empty_like(Fo) for _ in range(2)]
+def _levels_of(n_pad):
+    """CR levels of an n_pad-block chain (n_pad a power of two)."""
+    n_levels = n_pad.bit_length() - 1
+    if n_pad < 1 or 1 << n_levels != n_pad or n_levels > _MAX_LEVELS:
+        raise ValueError(f"chain length {n_pad} is not a power of two "
+                         f"<= 2**{_MAX_LEVELS}")
+    return n_levels
+
+
+def _ptr_array(ts):
+    return (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
+
+
+def _check_shapes(name, pairs):
+    """Validate (tensor, expected shape) pairs handed to a pass kernel."""
+    _check_device(name, [t for t, _ in pairs])
+    for t, shape in pairs:
+        if t.shape != shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+
+
+def crp_factor_fwd_pass(M, O, F):
+    """K1 (replaces crkern.py:_factor_fwd_kernel at every level).  Batch-first
+    M, O (B, n_pad, 11, 11) and rhs F (B, n_pad, 11, m), n_pad a power of two
+    -> (levels, stack, M_root, F_root) as :func:`factor_fwd_pass_plain`."""
+    Bb = M.shape[0]
+    if M.device.type == "cpu":
+        return factor_fwd_pass_plain(_to_slab(M), _to_slab(O), _to_slab(F), Bb)
+    name = "crp_factor_fwd_pass"
+    n_pad, m = M.shape[1], F.shape[-1]
+    blk, rhs = (Bb, n_pad, _NB, _NB), (Bb, n_pad, _NB, m)
+    _check_shapes(name, [(M, blk), (O, blk), (F, rhs)])
+    n_levels = _levels_of(n_pad)
+    new = lambda w, h: torch.empty(_NB, w, h * Bb, dtype=M.dtype, device=M.device)
+    hs = [n_pad >> (l + 1) for l in range(n_levels)]
+    levels = [(new(_NB, h), new(_NB, h), new(_NB, h)) for h in hs]
+    stack = [new(m, h) for h in hs]
+    M_root, F_root = new(_NB, 1), new(m, 1)
     lib = _build.load_library()
-    code = lib.crp_factor_fwd_level(*map(_ptr, (Mo, Me, OL, OR, Fo, Fe)),
-                                    *map(_ptr, outs), L, m, _stream(Mo))
-    crp_factor_fwd_level.launches += 1
-    _build.check(lib, code, "crp_factor_fwd_level")
-    return tuple(outs)
+    code = lib.crp_factor_fwd_pass(
+        _ptr(M), _ptr(O), _ptr(F), *(_ptr_array([lv[i] for lv in levels])
+                                     for i in range(3)),
+        _ptr_array(stack), _ptr(M_root), _ptr(F_root), Bb, n_pad, m,
+        _stream(M))
+    crp_factor_fwd_pass.launches += 1
+    _build.check(lib, code, name)
+    return levels, stack, M_root, F_root
 
 
 def crp_factor_level(Mo, Me, OL, OR):
@@ -262,18 +336,33 @@ def crp_fwd_level(Minv, OL, OR, fo, fe):
     return fe2, br
 
 
-def crp_bwd_level(Minv, OL, OR, fo, xe, xs):
-    """K3 (replaces crkern.py:_bwd_kernel) -> xo."""
-    if Minv.device.type == "cpu":
-        return bwd_level_plain(Minv, OL, OR, fo, xe, xs)
-    L, m = _check("crp_bwd_level", [Minv, OL, OR], [fo, xe, xs])
-    xo = torch.empty_like(fo)
+def crp_bwd_pass(levels, stack, x):
+    """K3 (replaces crkern.py:_bwd_kernel at every level).  ``levels``,
+    ``stack``: a factor's per-level (Minv, OL, OR) slabs and the rhs blocks
+    fo saved on the way down; ``x`` (11, m, B) the root solution -> X
+    (B, n_pad, 11, m)."""
+    Bb = x.shape[2]
+    if x.device.type == "cpu":
+        return _from_slab(bwd_pass_plain(levels, stack, x, Bb), Bb)
+    name = "crp_bwd_pass"
+    m, n_pad = x.shape[1], 1 << len(levels)
+    _levels_of(n_pad)
+    if len(stack) != len(levels):
+        raise ValueError(f"{name}: {len(levels)} levels, {len(stack)} rhs")
+    pairs = [(x, (_NB, m, Bb))]
+    for l, ((Minv, OL, OR), fo) in enumerate(zip(levels, stack)):
+        L = (n_pad >> (l + 1)) * Bb
+        pairs += [(Minv, (_NB, _NB, L)), (OL, (_NB, _NB, L)),
+                  (OR, (_NB, _NB, L)), (fo, (_NB, m, L))]
+    _check_shapes(name, pairs)
+    X = torch.empty(Bb, n_pad, _NB, m, dtype=x.dtype, device=x.device)
     lib = _build.load_library()
-    code = lib.crp_bwd_level(*map(_ptr, (Minv, OL, OR, fo, xe, xs, xo)), L, m,
-                             _stream(Minv))
-    crp_bwd_level.launches += 1
-    _build.check(lib, code, "crp_bwd_level")
-    return xo
+    code = lib.crp_bwd_pass(
+        *(_ptr_array([lv[i] for lv in levels]) for i in range(3)),
+        _ptr_array(stack), _ptr(x), _ptr(X), Bb, n_pad, m, _stream(x))
+    crp_bwd_pass.launches += 1
+    _build.check(lib, code, name)
+    return X
 
 
 def crp_root(A, F, invert):
@@ -293,7 +382,7 @@ def crp_root(A, F, invert):
     return Rinv, X
 
 
-KERNELS = (crp_factor_fwd_level, crp_fwd_level, crp_bwd_level, crp_root,
+KERNELS = (crp_factor_fwd_pass, crp_fwd_level, crp_bwd_pass, crp_root,
            crp_factor_level)
 for _k in KERNELS:
     _k.launches = 0
@@ -323,46 +412,6 @@ def _factor_slab(M, O, Bb):
         p //= 2
     root_inv, _ = crp_root(M, M.new_empty(M.shape[0], 0, Bb), invert=True)
     return levels, root_inv
-
-
-def _factor_fwd_slab(M, O, F, Bb):
-    """Fused factor + elimination of F, root, then the backward sweep.
-    Returns (levels, root_inv, X) in slab space."""
-    levels, stack = [], []
-    p = M.shape[2] // Bb
-    while p > 1:
-        Me, Mo = _split_oe(M, Bb)
-        OL, OR = _split_oe(O, Bb)
-        Fe, Fo = _split_oe(F, Bb)
-        Minv, Mhalf, Onext, S, Fe2, brF = crp_factor_fwd_level(
-            Mo, Me, OL, OR, Fo, Fe)
-        M = (Mhalf - _shift_fwd(S, Bb)).contiguous()
-        O = Onext
-        F = (Fe2 - _shift_fwd(brF, Bb)).contiguous()
-        levels.append((Minv, OL, OR))
-        stack.append(Fo)
-        p //= 2
-    root_inv, x = crp_root(M, F, invert=True)
-    return levels, root_inv, _backward(levels, stack, x, Bb)
-
-
-def _backward(levels, stack, x, Bb):
-    for (Minv, OL, OR), fo in zip(reversed(levels), reversed(stack)):
-        xs = _shift_bwd(x, Bb).contiguous()
-        xo = crp_bwd_level(Minv, OL, OR, fo, x, xs)
-        x = _interleave(x, xo, Bb)
-    return x
-
-
-def _solve_slab(levels, root_inv, f, Bb):
-    stack = []
-    for (Minv, OL, OR) in levels:
-        fe, fo = _split_oe(f, Bb)
-        fe2, br = crp_fwd_level(Minv, OL, OR, fo, fe)
-        f = (fe2 - _shift_fwd(br, Bb)).contiguous()
-        stack.append(fo)
-    _, x = crp_root(root_inv, f, invert=False)
-    return _backward(levels, stack, x, Bb)
 
 
 # ---------------------------------------------------------------------------
@@ -412,22 +461,30 @@ def crp_factor(M, O):
 
 
 def crp_factor_solve(M, O, F):
-    """Fused factor + multi-rhs solve of B chains.
+    """Fused factor + multi-rhs solve of B chains: K1, K4, K3, one launch
+    each.
 
     ``M``, ``O`` as :func:`crp_factor`; ``F``: (B, n, b, m) rhs columns
     known before the factor.  Returns ``(levels, root_inv, X)``: ``X``
     (B, n_pad, b, m) solves each chain (callers slice ``[:, :n]``), and
     ``(levels, root_inv)`` is the factor :func:`crp_factor` returns."""
     M, O, p = _pad_chain(M, O)
-    levels, root_inv, x = _factor_fwd_slab(_to_slab(M), _to_slab(O),
-                                           _to_slab(crp_pad_rhs(F, p)),
-                                           M.shape[0])
-    return tuple(levels), root_inv, _from_slab(x, M.shape[0])
+    levels, stack, M_root, F_root = crp_factor_fwd_pass(
+        M.contiguous(), O.contiguous(), crp_pad_rhs(F, p).contiguous())
+    root_inv, x = crp_root(M_root, F_root, invert=True)
+    return tuple(levels), root_inv, crp_bwd_pass(levels, stack, x)
 
 
 def crp_solve(levels, root_inv, f):
-    """Solve with a :func:`crp_factor` / :func:`crp_factor_solve` factor.
-    ``f`` (B, n_pad, b, m) zero-padded by :func:`crp_pad_rhs`; returns
-    (B, n_pad, b, m)."""
+    """Solve with a :func:`crp_factor` / :func:`crp_factor_solve` factor: one
+    K2 launch per level, then K4 and K3.  ``f`` (B, n_pad, b, m)
+    zero-padded by :func:`crp_pad_rhs`; returns (B, n_pad, b, m)."""
     Bb = f.shape[0]
-    return _from_slab(_solve_slab(list(levels), root_inv, _to_slab(f), Bb), Bb)
+    f, stack = _to_slab(f), []
+    for (Minv, OL, OR) in levels:
+        fe, fo = _split_oe(f, Bb)
+        fe2, br = crp_fwd_level(Minv, OL, OR, fo, fe)
+        f = (fe2 - _shift_fwd(br, Bb)).contiguous()
+        stack.append(fo)
+    _, x = crp_root(root_inv, f, invert=False)
+    return crp_bwd_pass(levels, stack, x)

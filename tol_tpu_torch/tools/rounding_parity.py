@@ -1,0 +1,135 @@
+"""Do two checkouts' cyclic-reduction kernels compute the same bits?
+
+    python3 -m tol_tpu_torch.tools.rounding_parity OTHER_TREE [--seed 0]
+
+``OTHER_TREE`` is another checkout of this repository, for example an
+earlier commit unpacked with ``git archive <commit> | tar -x -C build/other``
+(``build/`` is ignored by git).  Each tree's ``crp_factor_solve`` (K1, K4,
+K3) and ``crp_solve`` (K2, K4, K3) run on the same seeded chains at the S10
+solve's shapes: 128 lanes of 100 blocks padded to 128 (7 CR levels), 12
+border columns and one solve column.  Each tree runs twice, in a process of
+its own: built with nvcc's default, which may fuse a product and a sum into
+one FMA, and built with ``-fmad=false``, which rounds every product and
+every sum.  For each pair of runs the script prints, per output, how many
+entries differ in their bits and by how much.
+
+Where both trees' kernels evaluate the same expressions in the same order,
+their ``-fmad=false`` builds agree bit for bit, and any difference between
+their default builds comes from where nvcc chose to fuse.  Needs a CUDA
+device and nvcc; prints the card's name and power limit last.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+B, T, NB, M_BORDER = 128, 100, 11, 12
+
+
+def _inputs(seed):
+    """B diagonally dominant SPD block-tridiagonal chains of T blocks
+    (last coupling cut), their border columns F and one solve column f."""
+    rng = np.random.default_rng(seed)
+    A = 0.3 * rng.normal(size=(B, T, NB, NB))
+    M = A @ np.swapaxes(A, -1, -2) + 4.0 * np.eye(NB)
+    O = 0.1 * rng.normal(size=(B, T, NB, NB))
+    O[:, -1] = 0.0
+    F = rng.normal(size=(B, T, NB, M_BORDER))
+    f = rng.normal(size=(B, T, NB, 1))
+    return [np.ascontiguousarray(a, dtype=np.float32) for a in (M, O, F, f)]
+
+
+def _worker(tree, fmad, seed, save):
+    """Solve in ``tree``'s port and save the factor and both solutions."""
+    sys.path.insert(0, tree)
+    import torch
+
+    from tol_tpu_torch.ops import _build
+    from tol_tpu_torch.ops import crkern as ck
+    if not os.path.abspath(ck.__file__).startswith(tree + os.sep):
+        raise RuntimeError(f"imported {ck.__file__}, not the port of {tree}")
+    if not fmad:
+        _build.NVCC_FLAGS = (*_build.NVCC_FLAGS, "-fmad=false")
+    M, O, F, f = (torch.as_tensor(a, device="cuda") for a in _inputs(seed))
+    levels, root_inv, X = ck.crp_factor_solve(M, O, F)
+    n_pad = X.shape[1]
+    x = ck.crp_solve(levels, root_inv, ck.crp_pad_rhs(f, n_pad))
+    torch.cuda.synchronize()
+    out = {f"minv_level_{l}": lv[0] for l, lv in enumerate(levels)}
+    out.update(root_inv=root_inv, X=X, x=x)
+    np.savez(save, **{k: v.cpu().numpy() for k, v in out.items()})
+
+
+def _differ(name, a, b):
+    """Entries whose bits differ, the largest difference (absolute and over
+    the max-norm of ``b``) and, for the solutions (B, n_pad, 11, m), the
+    chain blocks that hold a differing entry."""
+    if a.shape != b.shape:
+        raise ValueError(f"shapes differ: {a.shape} and {b.shape}")
+    differ = a.view(np.uint32) != b.view(np.uint32)
+    diff = np.abs(a.astype(np.float64) - b)
+    out = dict(entries=int(a.size), bits_differ=int(differ.sum()),
+               max_abs=float(diff.max()),
+               max_rel=float(diff.max() / max(np.abs(b).max(), 1e-30)))
+    if name in ("X", "x"):
+        out["blocks_differ"] = np.flatnonzero(
+            differ.any(axis=(0, 2, 3))).tolist()
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("other", nargs="?", help="the other checkout's root")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default=os.path.join(ROOT, "build",
+                                                  "rounding_parity"))
+    ap.add_argument("--worker", help=argparse.SUPPRESS)
+    ap.add_argument("--fmad", choices=("on", "off"), help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.worker:
+        _worker(os.path.abspath(args.worker), args.fmad == "on", args.seed,
+                os.path.join(args.out, f"{args.fmad}.npz"))
+        return 0
+    if not args.other:
+        ap.error("name the other checkout")
+    import torch
+    if not torch.cuda.is_available():
+        print("rounding_parity: no CUDA device", file=sys.stderr)
+        return 2
+    runs = {}
+    for tree_name, tree in (("this", ROOT), ("other", os.path.abspath(args.other))):
+        for fmad in ("on", "off"):
+            out = os.path.join(args.out, tree_name)
+            os.makedirs(out, exist_ok=True)
+            subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--worker", tree, "--fmad", fmad, "--seed",
+                            str(args.seed), "--out", out], check=True)
+            with np.load(os.path.join(out, f"{fmad}.npz")) as z:
+                runs[f"{tree_name}_fmad_{fmad}"] = dict(z)
+    for a, b in (("this_fmad_off", "other_fmad_off"),
+                 ("this_fmad_on", "other_fmad_on"),
+                 ("this_fmad_on", "this_fmad_off"),
+                 ("other_fmad_on", "other_fmad_off")):
+        if runs[a].keys() != runs[b].keys():
+            raise ValueError(f"{a} and {b} return different outputs")
+        print(json.dumps(dict(
+            runs=[a, b], seed=args.seed,
+            outputs={k: _differ(k, runs[a][k], runs[b][k])
+                     for k in runs[a]})),
+            flush=True)
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0])
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
