@@ -12,8 +12,9 @@ Phases, each of which must pass (any failure exits non-zero and prints no
              on the card at the solves' shapes: the cyclic-reduction
              kernels K1-K5 at 11x11 blocks, B=128 lanes, T=100 blocks
              padded to 128 (CR levels h = 64..1), rhs widths m = 12, 14
-             and 1 (K1 and K3 take the level-0 operands and run the 7
-             levels in one launch; K2 and K5 run one launch per level);
+             and 1 (K1, K2 and K3 take the level-0 operands and run the 7
+             levels and the root step in one launch; K5 runs one launch per
+             level, K4 once for crp_factor's root);
              the sequential-chain kernels K6-K8 at T=100 blocks, B=128
              lanes, border widths 12 and 14.  Each case includes a lane
              with an indefinite pivot that must come out NaN in that lane
@@ -26,7 +27,7 @@ Phases, each of which must pass (any failure exits non-zero and prints no
              ``chain_eliminate`` + ``chain_rhs_forward`` +
              ``chain_back_sub`` and by a dense Cholesky yardstick (which
              the port never calls); all must agree.  This is the path that
-             launches K5.
+             launches K4 and K5.
 4. solves  — three float32 ts=100 solves through ``make_grouped_solver``
              (two-body dive + endgame in 128-lane groups, then 128-lane
              drain chunks) with bench.py's constants:
@@ -42,7 +43,8 @@ Phases, each of which must pass (any failure exits non-zero and prints no
                               lanes must converge feasibly, and its cost
                               gap is reported beside the crp dive's, not
                               gated.
-             Every kernel that belongs to a path must be launched on it.
+             Every kernel that belongs to a path must be launched on it,
+             and K4 and K5 (crp_factor) on none of them.
 5. profile — one dive (crp and sequential) and one endgame iteration of 128
              lanes under torch.profiler: host wall, device busy time and
              idle share, the hand-written kernels' share, kernel launches.
@@ -86,21 +88,22 @@ CHAIN_SOURCE = "tol_tpu_torch/csrc/chainkern.cu"
 KERNELS = {
     "crp_factor_fwd_pass": (
         CR_SOURCE, "tol_tpu/ops/crkern.py:168 _factor_fwd_kernel"),
-    "crp_fwd_level": (CR_SOURCE, "tol_tpu/ops/crkern.py:193 _fwd_kernel"),
+    "crp_fwd_pass": (CR_SOURCE, "tol_tpu/ops/crkern.py:193 _fwd_kernel + "
+                     "tol_tpu/ops/crkern.py:217 _root_solve_kernel"),
     "crp_bwd_pass": (CR_SOURCE, "tol_tpu/ops/crkern.py:204 _bwd_kernel"),
-    "crp_root": (CR_SOURCE, "tol_tpu/ops/crkern.py:213 _root_kernel + "
-                 "tol_tpu/ops/crkern.py:217 _root_solve_kernel"),
+    "crp_root": (CR_SOURCE, "tol_tpu/ops/crkern.py:213 _root_kernel"),
     "crp_factor_level": (CR_SOURCE, "tol_tpu/ops/crkern.py:144 _factor_kernel"),
     "chain_factor": (CHAIN_SOURCE, "tol_tpu/ops/chainkern.py:133 _factor_kernel"),
     "chain_rhs_forward": (
         CHAIN_SOURCE, "tol_tpu/ops/chainkern.py:170 _rhs_forward_kernel"),
     "chain_back_sub": (CHAIN_SOURCE, "tol_tpu/ops/chainkern.py:201 _bwd_kernel"),
 }
-CR_LEVEL_KERNELS = ("crp_factor_fwd_pass", "crp_fwd_level", "crp_bwd_pass",
-                    "crp_root")
+# the crp kernels of a solve path, and those of crp_factor alone
+CR_PASS_KERNELS = ("crp_factor_fwd_pass", "crp_fwd_pass", "crp_bwd_pass")
+CR_FACTOR_ONLY = ("crp_root", "crp_factor_level")
 # kernel -> its __global__ function, as ptxas and the profiler name it
 SYMBOLS = {"crp_factor_fwd_pass": "factor_fwd_pass_kernel",
-           "crp_fwd_level": "fwd_level_kernel",
+           "crp_fwd_pass": "fwd_pass_kernel",
            "crp_bwd_pass": "bwd_pass_kernel",
            "crp_root": "root_kernel",
            "crp_factor_level": "factor_level_kernel",
@@ -276,13 +279,16 @@ def _nan_pass_ok(torch, outs, col, must):
 
 
 def _poison_pivot(torch, args, col):
-    """K1, K4, K5 invert their first operand: an indefinite block there."""
+    """K4, K5 invert their first operand: an indefinite block there."""
     args[0][:, :, col] = -torch.eye(NB, device=args[0].device)
 
 
-def _poison_nan(torch, args, col):
-    """K2 applies a stored inverse: a NaN one (what K1 hands on)."""
-    args[0][:, :, col] = float("nan")
+def _poison_fwd_nan(torch, args, col):
+    """K2: lane ``col``'s factor is NaN from level 1 on and its root inverse
+    NaN (what K1 hands on from an indefinite pivot at level 1)."""
+    for Minv, _, _ in args[0][1:]:
+        Minv.view(NB, NB, -1, B_LANES)[:, :, :, col] = float("nan")
+    args[1][:, :, col] = float("nan")
 
 
 def _poison_pass_pivot(torch, args, col):
@@ -307,10 +313,10 @@ def _poison_chain_nan(torch, args, col):
 
 def _cr_cases(torch, ck, gen, dev):
     """K1-K5.  Per kernel: the inputs of one CR pass over the 7 levels
-    (timed: one launch for K1 and K3, one per level for the others), the
-    inputs of the kernel's other solve shapes (``extra``, checked only),
-    the kernel call, the twin call, and the bytes / FLOPs the timed pass
-    must move / do."""
+    (timed: one launch for K1, K2 and K3, one per level for K5; K4 one
+    launch), the inputs of the kernel's other solve shapes (``extra``,
+    checked only), the kernel call, the twin call, and the bytes / FLOPs the
+    timed pass must move / do."""
     fl = 4  # bytes per float32
     n3, n2 = NB ** 3, NB ** 2
     tri = NB * (NB + 1) // 2    # the pivot inverse reads only the lower triangle
@@ -335,16 +341,25 @@ def _cr_cases(torch, ck, gen, dev):
     def bwd_inputs(m):
         """What the K3 pass takes in a factor + solve at width m: the
         factor's levels, the saved rhs blocks and the root solution."""
-        levels, stack, M, F = factor_fwd_pass_plain(*pass_inputs(m))
-        return [levels, stack, ck.root_plain(M, F, True)[1]]
+        levels, stack, _, x = factor_fwd_pass_plain(*pass_inputs(m))
+        return [levels, stack, x]
+
+    def fwd_inputs(m):
+        """What the K2 pass takes in a solve at width m: a factor (levels,
+        root inverse) and the batch-first level-0 rhs."""
+        levels, _, root_inv, _ = factor_fwd_pass_plain(*pass_inputs(12))
+        f = torch.randn(B_LANES, n_pad, NB, m, generator=gen, device=dev)
+        return [levels, root_inv, f]
 
     n_pad = 2 * LEVELS[0]
     # K1: the 7-level factor pass with the border columns: 12 of them on
-    # S10 (timed), 14 on G7.  Least bytes: level 0 read once (each odd
-    # pivot's lower triangle, even blocks whole, O, F), every level's
-    # Minv, OL, OR, Fo and the root's M, F written once.
+    # S10 (timed), 14 on G7, then the root's inverse and solution.  Least
+    # bytes: level 0 read once (each odd pivot's lower triangle, even
+    # blocks whole, O, F), every level's Minv, OL, OR, Fo and the root's
+    # inverse and solution written once.
     m = 12
     factor_flops = 2 * n3 // 6 + 2 * n3 + 10 * n3
+    root_flops = 2 * n3 // 6 + 2 * n3
     blocks = sum(LEVELS)
     cases["crp_factor_fwd_pass"] = dict(
         inputs=[pass_inputs(m)], extra=[pass_inputs(14)],
@@ -353,21 +368,28 @@ def _cr_cases(torch, ck, gen, dev):
         nan_must=(-2, -1),
         bytes=B_LANES * fl * (n_pad // 2 * (tri + n2) + n_pad * (n2 + NB * m)
                               + blocks * (3 * n2 + NB * m) + n2 + NB * m),
-        flops=cols * (factor_flops + 6 * n2 * m),
+        flops=cols * (factor_flops + 6 * n2 * m)
+        + B_LANES * (root_flops + 2 * n2 * m),
         bytes_per_level_sum=cols * fl * ((tri + 3 * n2 + 2 * NB * m)
                                          + (4 * n2 + 2 * NB * m)))
-    # K2: forward elimination of one new rhs column (m = 1).
+    # K2: the 7-level forward elimination of one new rhs column (m = 1,
+    # timed) or of 12 (checked only), then the root solution.  Least bytes:
+    # the factor (every level's Minv, OL, OR and the root inverse) and
+    # level 0 of f read once, every level's fo and the root solution
+    # written once.  Per level, as the per-level kernel it replaces moved
+    # them: Minv, OL, OR, fo, fe read, fe2, br written.
     m = 1
-    k2 = per_level(lambda L: [_rand_slab(torch, gen, NB, L, dev),
-                              _rand_slab(torch, gen, NB, L, dev),
-                              _rand_slab(torch, gen, NB, L, dev),
-                              _rand_slab(torch, gen, m, L, dev, 1.0),
-                              _rand_slab(torch, gen, m, L, dev, 1.0)])
-    cases["crp_fwd_level"] = dict(
-        inputs=k2, kernel=ck.crp_fwd_level, plain=ck.fwd_level_plain,
-        poison=_poison_nan,
-        bytes=cols * fl * (3 * n2 + 2 * NB * m + 2 * NB * m),
-        flops=cols * 6 * n2 * m)
+    cases["crp_fwd_pass"] = dict(
+        inputs=[fwd_inputs(m)], extra=[fwd_inputs(12)],
+        kernel=ck.crp_fwd_pass,
+        plain=lambda lv, ri, f: ck.fwd_pass_plain(lv, ri, ck._to_slab(f),
+                                                  B_LANES),
+        flat=lambda out: _flat_pass([], *out), poison=_poison_fwd_nan,
+        nan_must=(-1,),
+        bytes=B_LANES * fl * (blocks * 3 * n2 + n2 + n_pad * NB * m
+                              + blocks * NB * m + NB * m),
+        flops=cols * 6 * n2 * m + B_LANES * 2 * n2 * m,
+        bytes_per_level_sum=cols * fl * (3 * n2 + 2 * NB * m + 2 * NB * m))
     # K3: the 7-level back-substitution of one rhs column (m = 1, timed),
     # and of the 12 or 14 border columns in the factor + solve.  Least
     # bytes: the factor, the saved rhs and the root solution read once, the
@@ -382,20 +404,12 @@ def _cr_cases(torch, ck, gen, dev):
                               + n_pad * NB * m),
         flops=cols * 6 * n2 * m,
         bytes_per_level_sum=cols * fl * (3 * n2 + 3 * NB * m + NB * m))
-    # K4: invert the root block and apply it to the 12 (timed) or 14 border
-    # columns; in the solve pass, apply the stored inverse to one rhs column.
-    m = 12
-    k4 = [[_spd_slab(torch, gen, B_LANES, dev),
-           _rand_slab(torch, gen, m, B_LANES, dev, 1.0), True]]
-    k4_extra = [[_spd_slab(torch, gen, B_LANES, dev),
-                 _rand_slab(torch, gen, 14, B_LANES, dev, 1.0), True],
-                [_rand_slab(torch, gen, NB, B_LANES, dev),
-                 _rand_slab(torch, gen, 1, B_LANES, dev, 1.0), False]]
+    # K4: invert crp_factor's B_LANES root blocks.  Least bytes: each
+    # block's lower triangle read, its inverse written.
     cases["crp_root"] = dict(
-        inputs=k4, extra=k4_extra, kernel=ck.crp_root, plain=ck.root_plain,
-        poison=_poison_pivot,
-        bytes=B_LANES * fl * ((tri + NB * m) + (n2 + NB * m)),
-        flops=B_LANES * (2 * n3 // 6 + 2 * n3 + 2 * n2 * m))
+        inputs=[[_spd_slab(torch, gen, B_LANES, dev)]], kernel=ck.crp_root,
+        plain=ck.root_plain, poison=_poison_pivot,
+        bytes=B_LANES * fl * (tri + n2), flops=B_LANES * root_flops)
     # K5: factor one level, no rhs.
     k5 = per_level(lambda L: [_spd_slab(torch, gen, L, dev),
                               _spd_slab(torch, gen, L, dev),
@@ -528,10 +542,9 @@ def check_kernels(torch, ck, ch, dev):
                 torch, lambda: [case["kernel"](*a) for a in extra], 50)
 
     # Library yardstick, never called by the port: K4's inverse against
-    # torch.linalg.inv.  No single PyTorch call computes what the other
-    # kernels compute.
-    A = torch.randn(B_LANES, NB, NB, generator=gen, device=dev) * 0.3
-    Mr = A @ A.transpose(1, 2) + 4.0 * torch.eye(NB, device=dev)
+    # torch.linalg.inv on the same blocks.  No single PyTorch call computes
+    # what the other kernels compute.
+    Mr = cases["crp_root"]["inputs"][0][0].permute(2, 0, 1).contiguous()
     records["crp_root"]["library_ms"] = _time_ms(
         torch, lambda: torch.linalg.inv(Mr), 50)
     return records
@@ -713,6 +726,8 @@ def run_solve(torch, ck, ch, path, ctx, lanes, dive_chain, expect):
     print(json.dumps(rec), flush=True)
     _require(all(launches[k] > 0 for k in expect),
              f"{path}: a kernel of the path was never launched: {launches}")
+    _require(not any(launches[k] for k in CR_FACTOR_ONLY),
+             f"{path}: a kernel of crp_factor alone was launched: {launches}")
     return rec, launches, gap
 
 
@@ -721,7 +736,7 @@ def run_solves(torch, ck, ch, dev):
     by_path = {}
     s10 = make_mission(torch, "S10", S10_LANES, dev)
     rec, by_path["s10"], gap_crp = run_solve(
-        torch, ck, ch, "s10", s10, S10_LANES, "crp", CR_LEVEL_KERNELS)
+        torch, ck, ch, "s10", s10, S10_LANES, "crp", CR_PASS_KERNELS)
     # bench.py's gate: KKT certificate, feasibility and the cost gap.
     _require(rec["gated_pass_with_cost_gap"] >= 0.9 * S10_LANES,
              f"s10 gate: {rec['gated_pass_with_cost_gap']}/{S10_LANES} lanes "
@@ -729,7 +744,7 @@ def run_solves(torch, ck, ch, dev):
 
     g7 = make_mission(torch, "G7", B_LANES, dev)
     rec, by_path["g7"], _ = run_solve(
-        torch, ck, ch, "g7", g7, B_LANES, "crp", CR_LEVEL_KERNELS)
+        torch, ck, ch, "g7", g7, B_LANES, "crp", CR_PASS_KERNELS)
     # bench.py's G7 gate has no cost term (its cost has no unique optimal
     # value at working tolerance); the gap against the best-known point is
     # informational.
@@ -740,7 +755,7 @@ def run_solves(torch, ck, ch, dev):
     # The same first 128 S10 seeds with the sequential chain in the dive.
     rec, by_path["s10_seqdive"], gap_seq = run_solve(
         torch, ck, ch, "s10_seqdive", s10, B_LANES, "pallas",
-        CR_LEVEL_KERNELS + CHAIN_KERNELS)
+        CR_PASS_KERNELS + CHAIN_KERNELS)
     _require(rec["converged_and_feasible"] >= 0.9 * B_LANES,
              f"s10_seqdive: {rec['converged_and_feasible']}/{B_LANES} lanes "
              "converged and feasible (< 90%)")
@@ -857,8 +872,8 @@ def main() -> int:
         by_path.update(solve_paths)
         print(json.dumps(dict(phase="solves", seconds=time.time() - t0)),
               flush=True)
-        # A kernel's launches: those of the solves; K5, which no solve
-        # reaches, has those of the chains phase.
+        # A kernel's launches: those of the solves; K4 and K5, which no
+        # solve reaches, have those of the chains phase.
         for name, rec in records.items():
             rec["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
             rec["launches"] = (sum(c[name] for c in solve_paths.values())

@@ -45,7 +45,7 @@ def _rel(got, want):
 def test_cuda_kernels_match_twins_on_card(cuda_device):
     """The flagship shapes: B=128 chains of T=100 11x11 blocks (7 CR
     levels), 12 border columns in the factor pass, one rhs column in the
-    solve pass.  Every kernel is launched."""
+    solve pass.  Every kernel is launched (K4 and K5 by crp_factor)."""
     rng = np.random.default_rng(8)
     M, O, F = _chains(rng, 128, 100, 11, 12)
     ck.reset_launch_counts()
@@ -76,8 +76,21 @@ def test_cuda_indefinite_pivot_is_nan_in_that_lane_only(cuda_device):
 def test_cuda_wrappers_refuse_float64(cuda_device):
     z = torch.zeros(11, 11, 4, device=cuda_device, dtype=torch.float64)
     with pytest.raises(TypeError, match="float32"):
-        ck.crp_root(z, torch.zeros(11, 1, 4, device=cuda_device,
-                                   dtype=torch.float64), True)
+        ck.crp_root(z)
+    with pytest.raises(TypeError, match="float32"):
+        ck.crp_fwd_pass([(z, z, z)], z[:, :, :2],
+                        torch.zeros(2, 2, 11, 1, device=cuda_device,
+                                    dtype=torch.float64))
+
+
+@pytest.mark.cuda
+def test_cuda_fwd_pass_refuses_a_non_contiguous_rhs(cuda_device):
+    z = lambda *s: torch.zeros(*s, device=cuda_device)
+    f = z(2, 2, 11, 3)[..., :1]
+    before = ck.crp_fwd_pass.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        ck.crp_fwd_pass([(z(11, 11, 2),) * 3], z(11, 11, 2), f)
+    assert ck.crp_fwd_pass.launches == before
 
 
 @pytest.mark.cuda
@@ -167,33 +180,64 @@ def test_cuda_bwd_pass_matches_twin(cuda_device, m):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 12])
+def test_cuda_fwd_pass_matches_twin(cuda_device, m):
+    """K2, one launch for all 7 levels and the root step, on a factor made
+    by the twin; lane 1's factor is NaN from level 1 on and must come out
+    NaN alone, from level 2's saved rhs on."""
+    rng = np.random.default_rng(20)
+    M, O, F = _flagship_chains(rng, 12)
+    levels, _, root_inv, _ = ck.factor_fwd_pass_plain(
+        ck._to_slab(M), ck._to_slab(O), ck._to_slab(F), 128)
+    f = torch.as_tensor(rng.normal(size=(128, 128, 11, m)), dtype=torch.float32)
+    want = _flat([], *ck.fwd_pass_plain(levels, root_inv, ck._to_slab(f), 128))
+    dev = lambda ts: [t.to(cuda_device) for t in ts]
+    got = _flat([], *ck.crp_fwd_pass([tuple(dev(lv)) for lv in levels],
+                                     root_inv.to(cuda_device),
+                                     f.to(cuda_device)))
+    assert len(got) == len(want) == 7 + 1
+    assert max(_rel(g, w) for g, w in zip(got, want)) < TOL_REL
+    for Minv, _, _ in levels[1:]:
+        Minv.view(11, 11, -1, 128)[:, :, :, 1] = float("nan")
+    root_inv[:, :, 1] = float("nan")
+    got = _flat([], *ck.crp_fwd_pass([tuple(dev(lv)) for lv in levels],
+                                     root_inv.to(cuda_device),
+                                     f.to(cuda_device)))
+    lane1 = [i == 1 for i in range(128)]
+    assert torch.isnan(got[0]).reshape(-1, 128).any(0).tolist() == [False] * 128
+    for t in got[2:]:
+        assert torch.isnan(t).reshape(-1, 128).any(0).tolist() == lane1
+
+
+@pytest.mark.cuda
 def test_cuda_passes_keep_an_indefinite_pivot_in_its_lane(cuda_device):
     M, O, F = _flagship_chains(np.random.default_rng(15), 12)
     M[1, 5] = -torch.eye(11)
-    levels, stack, Mr, Fr = ck.crp_factor_fwd_pass(
+    levels, stack, root_inv, x = ck.crp_factor_fwd_pass(
         *[t.to(cuda_device) for t in (M, O, F)])
-    _, x = ck.crp_root(Mr, Fr, invert=True)
     X = ck.crp_bwd_pass(levels, stack, x)
+    x2 = ck.crp_solve(levels, root_inv, F[..., :1].contiguous().to(cuda_device))
     lane1 = [i == 1 for i in range(128)]
     for t in _flat(levels, stack):
         assert torch.isnan(t).reshape(-1, 128).any(0).tolist() in (
             lane1, [False] * 128)
-    for t in (Mr, Fr):
+    for t in (root_inv, x):
         assert torch.isnan(t).reshape(-1, 128).any(0).tolist() == lane1
-    assert torch.isnan(X).flatten(1).any(1).tolist() == lane1
+    for t in (X, x2):
+        assert torch.isnan(t).flatten(1).any(1).tolist() == lane1
 
 
 @pytest.mark.cuda
 def test_cuda_solves_launch_each_pass_kernel_once(cuda_device):
-    """crp_factor_solve: one K1, one K4, one K3; crp_solve: a K2 per level,
-    one K4, one K3."""
+    """crp_factor_solve: one K1, one K3; crp_solve: one K2, one K3; K4 only
+    behind crp_factor."""
     M, O, F = _flagship_chains(np.random.default_rng(16), 12)
     ck.reset_launch_counts()
     levels, root, _ = ck.crp_factor_solve(
         *[t.to(cuda_device) for t in (M[:, :100], O[:, :100], F[:, :100])])
     counts = lambda: {k.__name__: k.launches for k in ck.KERNELS}
-    assert counts() == dict(crp_factor_fwd_pass=1, crp_fwd_level=0,
-                            crp_bwd_pass=1, crp_root=1, crp_factor_level=0)
+    assert counts() == dict(crp_factor_fwd_pass=1, crp_fwd_pass=0,
+                            crp_bwd_pass=1, crp_root=0, crp_factor_level=0)
     ck.crp_solve(levels, root, F[..., :1].to(cuda_device))
-    assert counts() == dict(crp_factor_fwd_pass=1, crp_fwd_level=7,
-                            crp_bwd_pass=2, crp_root=2, crp_factor_level=0)
+    assert counts() == dict(crp_factor_fwd_pass=1, crp_fwd_pass=1,
+                            crp_bwd_pass=2, crp_root=0, crp_factor_level=0)

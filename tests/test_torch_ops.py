@@ -194,10 +194,11 @@ void bwd(const T* Mi, const T* OL, const T* OR, const T* fo, const T* xe,
     crk::bwd_column<T>(Mi + k, OL + k, OR + k, fo + k, xe + k, xs + k, xo + k,
                        L, m);
 }
-// The whole passes, lane after lane, each step's items in order.
+// The whole passes, lane (or lane group) after lane, each step's items in
+// order.
 template <typename T>
 void factor_fwd_pass(const T* M, const T* O, const T* F, T** minv, T** ol,
-                     T** orr, T** fo, T* Mr, T* Fr, long B, int n_pad, int m) {
+                     T** orr, T** fo, T* Ri, T* X, long B, int n_pad, int m) {
   crk::LevelPtrs<T*> out{};
   for (int l = 0; l < crk::log2_exact(n_pad); ++l) {
     out.minv[l] = minv[l]; out.ol[l] = ol[l];
@@ -208,8 +209,22 @@ void factor_fwd_pass(const T* M, const T* O, const T* F, T** minv, T** ol,
     crk::factor_fwd_pass(
         crk::SerialTeam{}, crk::lanes_first_view(M, crk::NB, n, n_pad),
         crk::lanes_first_view(O, crk::NB, n, n_pad),
-        crk::lanes_first_view(F, m, n, n_pad), out, Mr, Fr, B, n, n_pad, m,
+        crk::lanes_first_view(F, m, n, n_pad), out, Ri, X, B, n, n_pad, m,
         smem.data());
+}
+template <typename T>
+void fwd_pass(const T** minv, const T** ol, const T** orr, const T* Ri,
+              const T* f, T** fo, T* x, long B, int n_pad, int m, int G) {
+  crk::LevelPtrs<const T*> lv{};
+  crk::LevelPtrs<T*> out{};
+  for (int l = 0; l < crk::log2_exact(n_pad); ++l) {
+    lv.minv[l] = minv[l]; lv.ol[l] = ol[l]; lv.orr[l] = orr[l];
+    out.fo[l] = fo[l];
+  }
+  std::vector<T> smem(G * crk::fwd_pass_floats(n_pad, m) + 1);
+  for (long n0 = 0; n0 < B; n0 += G)
+    crk::fwd_pass(crk::SerialTeam{}, lv, Ri, f, out, x, B, n0, G, n_pad, m,
+                  smem.data());
 }
 template <typename T>
 void bwd_pass(const T** minv, const T** ol, const T** orr, const T** fo,
@@ -245,9 +260,15 @@ void h_root(In A, In F, Out R, Out X, long L, int m, int inv) {
                              inv);
 }
 void h_factor_fwd_pass(In M, In O, In F, Out* minv, Out* ol, Out* orr,
-                       Out* fo, Out Mr, Out Fr, long B, int n_pad, int m) {
-  factor_fwd_pass(M, O, F, minv, ol, orr, fo, Mr, Fr, B, n_pad, m);
+                       Out* fo, Out Ri, Out X, long B, int n_pad, int m) {
+  factor_fwd_pass(M, O, F, minv, ol, orr, fo, Ri, X, B, n_pad, m);
 }
+void h_fwd_pass(In* minv, In* ol, In* orr, In Ri, In f, Out* fo, Out x, long B,
+                int n_pad, int m, int G) {
+  fwd_pass(minv, ol, orr, Ri, f, fo, x, B, n_pad, m, G);
+}
+// the lanes per thread block the kernel takes
+int fwd_group(int n_pad, int m) { return crk::fwd_pass_group(n_pad, m); }
 void h_bwd_pass(In* minv, In* ol, In* orr, In* fo, In x0, Out X, long B,
                 int n_pad, int m) {
   bwd_pass(minv, ol, orr, fo, x0, X, B, n_pad, m);
@@ -263,10 +284,27 @@ void f_bwd(const float* Mi, const float* OL, const float* OR, const float* fo,
            const float* xe, const float* xs, float* xo, long L, int m) {
   bwd(Mi, OL, OR, fo, xe, xs, xo, L, m);
 }
+void f_fwd(const float* Mi, const float* OL, const float* OR, const float* fo,
+           const float* fe, float* fe2, float* br, long L, int m) {
+  for (long k = 0; k < L; ++k)
+    crk::fwd_column<float>(Mi + k, OL + k, OR + k, fo + k, fe + k, fe2 + k,
+                           br + k, L, m);
+}
+void f_root(const float* A, const float* F, float* R, float* X, long L, int m,
+            int inv) {
+  for (long k = 0; k < L; ++k)
+    crk::root_column<float>(A + k, F + k, inv ? R + k : nullptr, X + k, L, m,
+                            inv);
+}
 void f_factor_fwd_pass(const float* M, const float* O, const float* F,
                        float** minv, float** ol, float** orr, float** fo,
-                       float* Mr, float* Fr, long B, int n_pad, int m) {
-  factor_fwd_pass(M, O, F, minv, ol, orr, fo, Mr, Fr, B, n_pad, m);
+                       float* Ri, float* X, long B, int n_pad, int m) {
+  factor_fwd_pass(M, O, F, minv, ol, orr, fo, Ri, X, B, n_pad, m);
+}
+void f_fwd_pass(const float** minv, const float** ol, const float** orr,
+                const float* Ri, const float* f, float** fo, float* x, long B,
+                int n_pad, int m, int G) {
+  fwd_pass(minv, ol, orr, Ri, f, fo, x, B, n_pad, m, G);
 }
 void f_bwd_pass(const float** minv, const float** ol, const float** orr,
                 const float** fo, const float* x0, float* X, long B, int n_pad,
@@ -298,9 +336,14 @@ def host_kernels(tmp_path_factory):
     so.h_root.argtypes = [P] * 4 + [Li, I, I]
     for prefix in ("h_", "f_"):
         getattr(so, prefix + "factor_fwd_pass").argtypes = [P] * 9 + [Li, I, I]
+        getattr(so, prefix + "fwd_pass").argtypes = [P] * 7 + [Li, I, I, I]
         getattr(so, prefix + "bwd_pass").argtypes = [P] * 6 + [Li, I, I]
     so.f_factor_fwd.argtypes = [P] * 12 + [Li, I]
+    so.f_fwd.argtypes = [P] * 7 + [Li, I]
     so.f_bwd.argtypes = [P] * 7 + [Li, I]
+    so.f_root.argtypes = [P] * 4 + [Li, I, I]
+    so.fwd_group.argtypes = [I, I]
+    so.fwd_group.restype = I
     return so
 
 
@@ -338,9 +381,10 @@ def test_kernel_device_math_matches_twins(host_kernels, m):
     got += _call(host_kernels.h_bwd, [Minv, OL, OR, Fo, Fe, xs], [rhs()], L, m)
     want += (tck.bwd_level_plain(Minv, OL, OR, Fo, Fe, xs),)
     got += _call(host_kernels.h_root, [Mo, Fo], [blk(), rhs()], L, m, 1)
-    want += tck.root_plain(Mo, Fo, True)
+    Rinv = tck.root_plain(Mo)
+    want += (Rinv, tck._mm(Rinv, Fo))
     got += _call(host_kernels.h_root, [Minv, Fo], [blk(), rhs()], L, m, 0)[1:]
-    want += tck.root_plain(Minv, Fo, False)[1:]
+    want += (tck._mm(Minv, Fo),)
     assert len(got) == len(want) == 12
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0,
@@ -353,19 +397,32 @@ def _ptrs(ts):
 
 def _host_factor_fwd_pass(so, M, O, F, prefix="h_"):
     """K1's pass routine (g++; float64, or float32 with ``prefix="f_"``) on
-    batch-first M, O, F -> (levels, stack, M_root, F_root) as the twin
-    returns them."""
+    batch-first M, O, F -> (levels, stack, root_inv, x) as the twin returns
+    them."""
     B, n_pad, _, m = F.shape
     new = lambda w, h: torch.empty(11, w, h * B, dtype=F.dtype)
     hs = [n_pad >> (l + 1) for l in range(n_pad.bit_length() - 1)]
     levels = [(new(11, h), new(11, h), new(11, h)) for h in hs]
     stack = [new(m, h) for h in hs]
-    Mr, Fr = new(11, 1), new(m, 1)
+    Ri, x = new(11, 1), new(m, 1)
     getattr(so, prefix + "factor_fwd_pass")(
         M.data_ptr(), O.data_ptr(), F.data_ptr(),
         *[_ptrs([lv[i] for lv in levels]) for i in range(3)], _ptrs(stack),
-        Mr.data_ptr(), Fr.data_ptr(), B, n_pad, m)
-    return levels, stack, Mr, Fr
+        Ri.data_ptr(), x.data_ptr(), B, n_pad, m)
+    return levels, stack, Ri, x
+
+
+def _host_fwd_pass(so, levels, root_inv, f, G, prefix="h_"):
+    """K2's pass routine (g++) over lane groups of G on the batch-first rhs
+    f -> (stack, x) as the twin returns them."""
+    B, n_pad, _, m = f.shape
+    stack = [torch.empty(11, m, lv[0].shape[2], dtype=f.dtype) for lv in levels]
+    x = torch.empty(11, m, B, dtype=f.dtype)
+    getattr(so, prefix + "fwd_pass")(
+        *[_ptrs([lv[i] for lv in levels]) for i in range(3)],
+        root_inv.data_ptr(), f.data_ptr(), _ptrs(stack), x.data_ptr(), B,
+        n_pad, m, G)
+    return stack, x
 
 
 def _host_bwd_pass(so, levels, stack, x, prefix="h_"):
@@ -382,26 +439,56 @@ def _flat(levels, stack, *rest):
     return [t for lv in levels for t in lv] + list(stack) + list(rest)
 
 
+def _assert_close(got, want):
+    for g, w in zip(got, want, strict=True):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0,
+                                   atol=TOL * max(1.0, w.abs().max().item()))
+
+
 @pytest.mark.parametrize("m", [12, 1])
 def test_kernel_pass_math_matches_pass_twins(host_kernels, m):
-    """K1's and K3's whole-pass routines (n_pad = 16: 4 levels, 3 lanes),
+    """K1's, K2's and K3's whole-pass routines (n_pad = 16: 4 levels, 3
+    lanes; K2 in the lane groups of the kernel, one partial group here),
     compiled for the host in float64 and run step by step, against
-    factor_fwd_pass_plain and bwd_pass_plain."""
+    factor_fwd_pass_plain (K1's root tail included), fwd_pass_plain and
+    bwd_pass_plain."""
     rng = np.random.default_rng(11)
     B, n_pad = 3, 16
     M, O, F = (torch.as_tensor(x) for x in _chains(rng, B, n_pad, 11, m))
     want = tck.factor_fwd_pass_plain(tck._to_slab(M), tck._to_slab(O),
                                      tck._to_slab(F), B)
     got = _host_factor_fwd_pass(host_kernels, M, O, F)
-    for g, w in zip(_flat(*got), _flat(*want), strict=True):
-        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0,
-                                   atol=TOL * max(1.0, w.abs().max().item()))
-    levels, stack, Mr, Fr = want
+    _assert_close(_flat(*got), _flat(*want))
+    levels, stack, root_inv, _ = want
+    f = torch.as_tensor(rng.normal(size=(B, n_pad, 11, m)))
+    G = host_kernels.fwd_group(n_pad, m)
+    assert B % G != 0
+    got = _host_fwd_pass(host_kernels, levels, root_inv, f, G)
+    want = tck.fwd_pass_plain(levels, root_inv, tck._to_slab(f), B)
+    _assert_close(_flat([], *got), _flat([], *want))
     x = torch.as_tensor(rng.normal(size=(11, m, B)))
     got = _host_bwd_pass(host_kernels, levels, stack, x)
     want = tck._from_slab(tck.bwd_pass_plain(levels, stack, x, B), B)
-    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
-                               atol=TOL * max(1.0, want.abs().max().item()))
+    _assert_close([got], [want])
+
+
+@pytest.mark.parametrize("G", [1, 2, 4])
+def test_kernel_fwd_pass_math_holds_for_any_lane_group(host_kernels, G):
+    """K2's pass routine over 3 lanes in groups of G (whole groups, a full
+    one and a partial one, one partial one) gives the twin's values."""
+    rng = np.random.default_rng(18)
+    B, n_pad, m = 3, 16, 2
+    M, O, F = (torch.as_tensor(x) for x in _chains(rng, B, n_pad, 11, m))
+    levels, _, root_inv, _ = tck.factor_fwd_pass_plain(
+        tck._to_slab(M), tck._to_slab(O), tck._to_slab(F), B)
+    f = torch.as_tensor(rng.normal(size=(B, n_pad, 11, m)))
+    got = _host_fwd_pass(host_kernels, levels, root_inv, f, G)
+    want = tck.fwd_pass_plain(levels, root_inv, tck._to_slab(f), B)
+    _assert_close(_flat([], *got), _flat([], *want))
+
+
+def _nan_lanes(t, B):
+    return torch.isnan(t).reshape(-1, B).any(0).tolist()
 
 
 def test_kernel_pass_math_keeps_an_indefinite_pivot_in_its_lane(host_kernels):
@@ -412,16 +499,14 @@ def test_kernel_pass_math_keeps_an_indefinite_pivot_in_its_lane(host_kernels):
     B, n_pad, m = 3, 16, 2
     M, O, F = (torch.as_tensor(x) for x in _chains(rng, B, n_pad, 11, m))
     M[1, 5] = -torch.eye(11, dtype=torch.float64)
-    levels, stack, Mr, Fr = _host_factor_fwd_pass(host_kernels, M, O, F)
+    levels, stack, Ri, xr = _host_factor_fwd_pass(host_kernels, M, O, F)
     x = torch.as_tensor(rng.normal(size=(11, m, B)))
     X = _host_bwd_pass(host_kernels, levels, stack, x)
-    slabs = _flat(levels, stack, Mr, Fr)
+    slabs = _flat(levels, stack, Ri, xr)
     for t in slabs:
-        lanes = torch.isnan(t).reshape(-1, B).any(0).tolist()
-        assert lanes in ([False, True, False], [False, False, False])
-    for t in (Mr, Fr):
-        assert torch.isnan(t).reshape(-1, B).any(0).tolist() == [False, True,
-                                                                   False]
+        assert _nan_lanes(t, B) in ([False, True, False], [False] * 3)
+    for t in (Ri, xr):
+        assert _nan_lanes(t, B) == [False, True, False]
     assert torch.isnan(X).flatten(1).any(1).tolist() == [False, True, False]
     want = tck.factor_fwd_pass_plain(tck._to_slab(M), tck._to_slab(O),
                                      tck._to_slab(F), B)
@@ -432,18 +517,49 @@ def test_kernel_pass_math_keeps_an_indefinite_pivot_in_its_lane(host_kernels):
                                    atol=TOL * max(1.0, w[keep].abs().max().item()))
 
 
+@pytest.mark.parametrize("G", [1, 2])
+def test_kernel_fwd_pass_math_keeps_a_nan_lane_in_its_lane(host_kernels, G):
+    """K2 on a factor whose lane 1 is NaN from level 1 on (what K1 hands on
+    from an indefinite pivot there): the saved rhs of levels >= 1 and the
+    root solution are NaN in lane 1 alone, in lane groups of 1 and 2; lanes
+    0 and 2 agree with the twin."""
+    rng = np.random.default_rng(19)
+    B, n_pad, m = 3, 16, 1
+    M, O, F = (torch.as_tensor(x) for x in _chains(rng, B, n_pad, 11, m))
+    levels, _, root_inv, _ = tck.factor_fwd_pass_plain(
+        tck._to_slab(M), tck._to_slab(O), tck._to_slab(F), B)
+    for Minv, _, _ in levels[1:]:
+        Minv.view(11, 11, -1, B)[:, :, :, 1] = float("nan")
+    root_inv[:, :, 1] = float("nan")
+    f = torch.as_tensor(rng.normal(size=(B, n_pad, 11, m)))
+    stack, x = _host_fwd_pass(host_kernels, levels, root_inv, f, G)
+    assert _nan_lanes(stack[0], B) == [False] * 3
+    for t in stack[2:] + [x]:
+        assert _nan_lanes(t, B) == [False, True, False]
+    want = tck.fwd_pass_plain(levels, root_inv, tck._to_slab(f), B)
+    for g, w in zip(_flat([], stack, x), _flat([], *want), strict=True):
+        keep = ~torch.isnan(w)
+        assert torch.equal(torch.isnan(g), ~keep)
+        np.testing.assert_allclose(g[keep].numpy(), w[keep].numpy(), rtol=0,
+                                   atol=TOL * max(1.0, w[keep].abs().max().item()))
+
+
 @pytest.mark.parametrize("m", [12, 1])
 def test_kernel_passes_are_the_level_loop_bitwise(host_kernels, m):
     """Same arithmetic, not only the same values: in float32, with no
-    contraction into FMAs, K1's and K3's pass routines give the very bits of
-    the per-level column routines (factor_fwd_column, bwd_column) driven
-    level by level with the even/odd split, shifts and interleave in torch
-    (n_pad = 16: 4 levels, 3 lanes)."""
+    contraction into FMAs, the pass routines give the very bits of the
+    per-level column routines driven level by level with the even/odd split,
+    shifts and interleave in torch (n_pad = 16: 4 levels, 3 lanes): K1 those
+    of factor_fwd_column and of root_column's invert branch, K2 (in the
+    kernel's lane groups) those of fwd_column and of root_column's apply
+    branch, K3 those of bwd_column."""
     rng = np.random.default_rng(17)
     B, n_pad = 3, 16
     M, O, F = (torch.as_tensor(x, dtype=torch.float32)
                for x in _chains(rng, B, n_pad, 11, m))
     so = host_kernels
+    blk = lambda: torch.empty(11, 11, B, dtype=torch.float32)
+    rhs = lambda: torch.empty(11, m, B, dtype=torch.float32)
     # the level loop
     Ms, Os, Fs = tck._to_slab(M), tck._to_slab(O), tck._to_slab(F)
     levels, stack = [], []
@@ -457,8 +573,23 @@ def test_kernel_passes_are_the_level_loop_bitwise(host_kernels, m):
         Fs = (Fe2 - tck._shift_fwd(brF, B)).contiguous()
         levels.append((Minv, OL, OR))
         stack.append(Fo)
+    Ri, xr = _call(so.f_root, [Ms, Fs], [blk(), rhs()], B, m, 1)
     got = _host_factor_fwd_pass(so, M, O, F, prefix="f_")
-    for g, w in zip(_flat(*got), _flat(levels, stack, Ms, Fs), strict=True):
+    for g, w in zip(_flat(*got), _flat(levels, stack, Ri, xr), strict=True):
+        assert torch.equal(g, w)
+    # K2 against the same factor
+    f = torch.as_tensor(rng.normal(size=(B, n_pad, 11, m)), dtype=torch.float32)
+    got = _host_fwd_pass(so, levels, Ri, f, so.fwd_group(n_pad, m), prefix="f_")
+    fs, saved = tck._to_slab(f), []
+    for Minv, OL, OR in levels:
+        fe, fo = tck._split_oe(fs, B)
+        fe2, br = _call(so.f_fwd, [Minv, OL, OR, fo, fe],
+                        [torch.empty_like(fo), torch.empty_like(fo)],
+                        fo.shape[2], m)
+        fs = (fe2 - tck._shift_fwd(br, B)).contiguous()
+        saved.append(fo)
+    xf = _call(so.f_root, [Ri, fs], [blk(), rhs()], B, m, 0)[1]
+    for g, w in zip(_flat([], *got), _flat([], saved, xf), strict=True):
         assert torch.equal(g, w)
     x = torch.as_tensor(rng.normal(size=(11, m, B)), dtype=torch.float32)
     X = _host_bwd_pass(so, levels, stack, x, prefix="f_")

@@ -1,6 +1,6 @@
 // Block routines of the cyclic-reduction (CR) kernels K1-K5 (the
 // sequential-chain kernels K6-K8 build on them in chainkern_block.cuh):
-// per-column routines first, then the whole-pass routines of K1 and K3,
+// per-column routines first, then the whole-pass routines of K1, K2 and K3,
 // which run the same arithmetic item by item (see "Whole-pass routines").
 //
 // A "column" is one (block k, lane n) pair of a CR level.  Every operand is
@@ -217,9 +217,11 @@ CRK_HD void factor_fwd_column(const T* __restrict__ Mo, const T* __restrict__ Me
   }
 }
 
-// K2 — forward elimination of m new rhs columns against a stored level
-// (crkern._fwd_kernel): g = Minv fo, fe2 = fe - OL g, br = OR^T g.  g is
-// consumed here and not stored (the solve never reads it back).
+// One level of K2 for one column: forward elimination of m new rhs columns
+// against a stored level (crkern._fwd_kernel): g = Minv fo, fe2 = fe - OL g,
+// br = OR^T g.  g is consumed here and not stored (the solve never reads it
+// back).  Like factor_fwd_column, the column-by-column statement of what
+// fwd_pass computes item by item; no kernel calls it.
 template <typename T>
 CRK_HD void fwd_column(const T* __restrict__ Minv, const T* __restrict__ OL,
                        const T* __restrict__ OR, const T* __restrict__ fo,
@@ -262,9 +264,12 @@ CRK_HD void bwd_column(const T* __restrict__ Minv, const T* __restrict__ OL,
   }
 }
 
-// K4 — the root block (crkern._root_kernel + _root_solve_kernel).
+// The root block (crkern._root_kernel + _root_solve_kernel).
 // invert != 0: Rinv = A^-1 is computed and stored, then X = Rinv F.
 // invert == 0: A already holds the stored inverse; X = A F.
+// K4 launches the invert branch with no rhs (m = 0).  The invert branch with
+// rhs is the column statement of K1's tail, the apply branch that of the K2
+// pass's last step; the host tests hold the passes against both.
 template <typename T>
 CRK_HD void root_column(const T* __restrict__ A, const T* __restrict__ F,
                         T* __restrict__ Rinv_o, T* __restrict__ X_o, long L,
@@ -289,15 +294,17 @@ CRK_HD void root_column(const T* __restrict__ A, const T* __restrict__ F,
 #undef CRK_AT
 
 // ---------------------------------------------------------------------------
-// Whole-pass routines: K1 crp_factor_fwd_pass and K3 crp_bwd_pass.
+// Whole-pass routines: K1 crp_factor_fwd_pass, K2 crp_fwd_pass and K3
+// crp_bwd_pass.
 //
-// One team of threads runs every CR level of one lane.  A pass is a fixed
-// sequence of steps; a step is a set of independent work items (each item
-// computes a few output entries with the column routines' arithmetic) and
-// ends at a barrier.  Team::each(n, f) runs items 0..n-1, Team::sync() is
-// the barrier: on the card a thread block strides over the items and syncs
-// (BlockTeam); on the host one thread runs them in order (SerialTeam), so
-// the g++ build of this header runs the same steps in the same order.
+// One team of threads runs every CR level of one lane (K1, K3) or of a
+// group of lanes (K2).  A pass is a fixed sequence of steps; a step is a set
+// of independent work items (each item computes a few output entries with
+// the column routines' arithmetic) and ends at a barrier.  Team::each(n, f)
+// runs items 0..n-1, Team::sync() is the barrier: on the card a thread
+// block strides over the items and syncs (BlockTeam); on the host one
+// thread runs them in order (SerialTeam), so the g++ build of this header
+// runs the same steps in the same order.
 // ---------------------------------------------------------------------------
 
 struct SerialTeam {
@@ -365,11 +372,33 @@ CRK_HD int log2_exact(int n) {
 }
 
 // Shared floats K1 needs per lane: the M, O, F blocks of levels 1, 2, ...
-// ping-pong between a region of n_pad / 2 and one of n_pad / 4 blocks, and
-// the pivot inverses of one level (n_pad / 2 blocks).
+// ping-pong between a region of n_pad / 2 and one of n_pad / 4 blocks, the
+// pivot inverses of one level (n_pad / 2 blocks), and the root block's
+// Cholesky columns and inverse.
 CRK_HD long factor_fwd_pass_floats(int n_pad, int m) {
   const long blk = 2 * NB * NB + (long)NB * m;
-  return (n_pad / 2 + n_pad / 4) * blk + (long)(n_pad / 2) * NB * NB;
+  return (n_pad / 2 + n_pad / 4) * blk + (long)(n_pad / 2 + 2) * NB * NB;
+}
+
+// Shared floats K2 needs per lane: f of levels 1, 2, ... (ping-pong between
+// n_pad / 2 and n_pad / 4 blocks) and t = Minv fo of one level (n_pad / 2
+// blocks), NB x m each.  Level 0 is read from device memory.
+CRK_HD long fwd_pass_floats(int n_pad, int m) {
+  return (long)(n_pad / 2 + n_pad / 4 + n_pad / 2) * NB * m;
+}
+
+// Lanes per thread block of K2: kFwdGroup, halved while the group's shared
+// memory would pass the 227 KB a block may have.  Two lanes took least time
+// at B = 128, m = 1 (1, 4 and 8 took 14-67% more; PERF.md, findings on
+// the forward pass).
+constexpr int kFwdGroup = 2;
+constexpr long kMaxSmemBytes = 232448;
+CRK_HD int fwd_pass_group(int n_pad, int m) {
+  int G = kFwdGroup;
+  while (G > 1 && G * fwd_pass_floats(n_pad, m) * (long)sizeof(float) >
+                      kMaxSmemBytes)
+    G /= 2;
+  return G;
 }
 
 // Shared floats K3 needs per lane: x of two levels (ping-pong) and the
@@ -532,19 +561,22 @@ CRK_HD void factor_fwd_level(const Team& team, const Unit<const T>& cM,
 // K1 — the whole fused factor + forward elimination of one lane
 // (crkern._factor_fwd_kernel at every level, with the even/odd split, the
 // one-block shifts and the subtractions between levels as index
-// arithmetic).  Level 0 is read from M0, O0, F0; each level's Minv, OL, OR,
-// Fo go to the slabs of `out` (lane column `lane` of B), levels >= 1 live in
-// shared memory, and the root M, F go to the slabs Mroot (NB, NB, B) and
-// Froot (NB, m, B).
+// arithmetic), then the root block (crkern._root_kernel).  Level 0 is read
+// from M0, O0, F0; each level's Minv, OL, OR, Fo go to the slabs of `out`
+// (lane column `lane` of B), levels >= 1 live in shared memory, and the
+// root's inverse and solution go to the slabs Rinv (NB, NB, B) and X
+// (NB, m, B).
 template <typename T, typename Team>
 CRK_HD void factor_fwd_pass(const Team& team, const Unit<const T>& M0,
                             const Unit<const T>& O0, const Unit<const T>& F0,
-                            const LevelPtrs<T*>& out, T* Mroot, T* Froot, long B,
+                            const LevelPtrs<T*>& out, T* Rinv, T* X, long B,
                             long lane, int n_pad, int m, T* smem) {
   constexpr int N2 = NB * NB;
   const int wF = NB * m;
   T* const region1 = smem + (long)(n_pad / 2) * (2 * N2 + wF);
   T* const W = region1 + (long)(n_pad / 4) * (2 * N2 + wF);  // Minv of a level
+  T* const Lc = W + (long)(n_pad / 2) * N2;  // the root's Cholesky columns
+  T* const R = Lc + N2;                      // and its inverse
   Unit<const T> cM = M0, cO = O0, cF = F0;
   int l = 0;
   for (int h = n_pad / 2; h >= 1; h /= 2, ++l) {
@@ -561,11 +593,128 @@ CRK_HD void factor_fwd_pass(const Team& team, const Unit<const T>& M0,
     cO = {nO.p, 1, N2};
     cF = {nF.p, 1, wF};
   }
-  team.each(N2 + wF, [&](int e) {
-    if (e < N2)
-      Mroot[e * B + lane] = cM.at(0, e);
-    else
-      Froot[(e - N2) * B + lane] = cF.at(0, e - N2);
+  // The root, as root_column's invert branch: the Cholesky columns, one
+  // barrier each; the columns of the inverse; then X = Rinv F.
+  for (int j = 0; j < NB; ++j) {
+    team.each(NB - j, [&](int it) { chol_entry(cM, 0, Lc, j, j + it); });
+    team.sync();
+  }
+  team.each(NB, [&](int q) {
+    T x[NB];
+    inverse_column(*reinterpret_cast<const T(*)[NB][NB]>(Lc), q, x);
+    CRK_UNROLL
+    for (int i = 0; i < NB; ++i) {
+      R[i * NB + q] = x[i];
+      Rinv[(i * NB + q) * B + lane] = x[i];
+    }
+  });
+  team.sync();
+  team.each(wF, [&](int e) {
+    const int i = e / m, j = e % m;
+    T acc = R[i * NB] * cF.at(0, j);
+    CRK_UNROLL
+    for (int c = 1; c < NB; ++c) acc = acc + R[i * NB + c] * cF.at(0, c * m + j);
+    X[e * B + lane] = acc;
+  });
+}
+
+// The blocks of one level for a group of lanes: entry e of block k of lane
+// g at p[g * gs + k * bs + e * es].  A batch-last slab (a, b, h * B) offset
+// by the group's first lane has gs = 1, bs = B, es = h * B; the batch-first
+// rhs (B, n_pad, NB, m) gs = n_pad * NB * m, bs = NB * m, es = 1; K2's
+// shared memory, lanes fastest, gs = 1, bs = NB * m * G, es = G.
+template <typename T>
+struct Lanes {
+  T* p;
+  long gs, bs, es;
+  CRK_HD T& at(int g, int k, int e) const { return p[g * gs + k * bs + e * es]; }
+};
+
+// Items of a lane group: item r of lane g is run as f(g, r), for the `ng`
+// lanes present out of G (a power of two), r * G + g in order, so that
+// neighbouring threads take neighbouring lanes.
+template <typename Team>
+struct LaneGroup {
+  const Team& team;
+  int G, gsh, ng;
+  template <typename F>
+  CRK_HD void each(int n, F&& f) const {
+    team.each(n << gsh, [&](int it) {
+      const int g = it & (G - 1);
+      if (g < ng) f(g, it >> gsh);
+    });
+  }
+};
+
+// K2 — the whole forward elimination of m new rhs columns against a stored
+// factor, for the lanes lane0 .. lane0 + G - 1 (crkern._fwd_kernel at every
+// level, with the even/odd split, the one-block shift and the subtraction
+// between levels as index arithmetic), then the root solution
+// (crkern._root_solve_kernel).  Per level, as fwd_column:
+//   t_k = Minv_k fo_k;  next f_k = (fe_k - OL_k t_k) - OR_{k-1}^T t_{k-1},
+// fo_k, fe_k the blocks 2k + 1, 2k of the level's f; then x = Rinv f_root.
+// Level 0 is read from the batch-first f (B, n_pad, NB, m); the factor's
+// slabs lv (minv, ol, orr) and Rinv (NB, NB, B) are read batch-last, a
+// slab entry of the group's lanes by neighbouring threads; each level's fo
+// goes to the slab out.fo[l], x to the slab (NB, m, B).
+template <typename T, typename Team>
+CRK_HD void fwd_pass(const Team& team, const LevelPtrs<const T*>& lv,
+                     const T* Rinv, const T* f, const LevelPtrs<T*>& out,
+                     T* x, long B, long lane0, int G, int n_pad, int m,
+                     T* smem) {
+  const int w = NB * m, nl = log2_exact(n_pad);
+  const LaneGroup<Team> grp{team, G, log2_exact(G),
+                            (int)(B - lane0 < G ? B - lane0 : G)};
+  const long cap0 = n_pad / 2, cap1 = n_pad / 4, bs = (long)w * G;
+  const Lanes<T> t{smem + (cap0 + cap1) * bs, 1, bs, G};
+  Lanes<const T> cur{f + lane0 * n_pad * w, (long)n_pad * w, w, 1};
+  for (int l = 0, h = n_pad / 2; l < nl; ++l, h /= 2) {
+    const long L = h * B;
+    const Lanes<const T> Minv{lv.minv[l] + lane0, 1, B, L},
+        OL{lv.ol[l] + lane0, 1, B, L}, OR{lv.orr[l] + lane0, 1, B, L};
+    const Lanes<T> fo{out.fo[l] + lane0, 1, B, L};
+    const Lanes<T> nf{smem + (l & 1) * cap0 * bs, 1, bs, G};
+    // t_k(i, j) = (Minv_k fo_k)(i, j); fo_k(i, j) goes to the stack
+    grp.each(h * w, [&](int g, int r) {
+      const int k = r / w, e = r % w, i = e / m, j = e % m;
+      T acc = Minv.at(g, k, i * NB) * cur.at(g, 2 * k + 1, j);
+      CRK_UNROLL
+      for (int c = 1; c < NB; ++c)
+        acc = acc + Minv.at(g, k, i * NB + c) * cur.at(g, 2 * k + 1, c * m + j);
+      t.at(g, k, e) = acc;
+      fo.at(g, k, e) = cur.at(g, 2 * k + 1, e);
+    });
+    team.sync();
+    // next f_k(i, j) = (fe_k - OL_k t_k)(i, j) - (OR_{k-1}^T t_{k-1})(i, j)
+    grp.each(h * w, [&](int g, int r) {
+      const int k = r / w, e = r % w, i = e / m, j = e % m;
+      T u = OL.at(g, k, i * NB) * t.at(g, k, j);
+      CRK_UNROLL
+      for (int c = 1; c < NB; ++c)
+        u = u + OL.at(g, k, i * NB + c) * t.at(g, k, c * m + j);
+      const T fe2 = cur.at(g, 2 * k, e) - u;
+      if (k > 0) {
+        T b = OR.at(g, k - 1, i) * t.at(g, k - 1, j);
+        CRK_UNROLL
+        for (int c = 1; c < NB; ++c)
+          b = b + OR.at(g, k - 1, c * NB + i) * t.at(g, k - 1, c * m + j);
+        nf.at(g, k, e) = fe2 - b;
+      } else {
+        nf.at(g, k, e) = fe2;
+      }
+    });
+    team.sync();
+    cur = {nf.p, 1, bs, G};
+  }
+  // x(i, j) = (Rinv f_root)(i, j)
+  const Lanes<const T> R{Rinv + lane0, 1, 0, B};
+  grp.each(w, [&](int g, int e) {
+    const int i = e / m, j = e % m;
+    T acc = R.at(g, 0, i * NB) * cur.at(g, 0, j);
+    CRK_UNROLL
+    for (int c = 1; c < NB; ++c)
+      acc = acc + R.at(g, 0, i * NB + c) * cur.at(g, 0, c * m + j);
+    x[e * B + lane0 + g] = acc;
   });
 }
 

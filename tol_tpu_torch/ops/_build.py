@@ -33,9 +33,9 @@ _SIGNATURES = {
     "crkern": {
         "crp_factor_fwd_pass": [_P] * 9 + [_L, _I, _I, _P],
         "crp_factor_level": [_P] * 8 + [_L, _P],
-        "crp_fwd_level": [_P] * 7 + [_L, _I, _P],
+        "crp_fwd_pass": [_P] * 7 + [_L, _I, _I, _P],
         "crp_bwd_pass": [_P] * 6 + [_L, _I, _I, _P],
-        "crp_root": [_P] * 4 + [_L, _I, _I, _P],
+        "crp_root": [_P] * 2 + [_L, _P],
     },
     "chainkern": {
         "chain_factor": [_P] * 7 + [_I, _I, _L, _P],

@@ -12,15 +12,18 @@ Each level's blocks sit in a slab ``(a, b, p*B)`` whose entry
 neighbouring addresses.  Five kernels do the level math
 (``csrc/crkern.cu``):
 
-    K1 crp_factor_fwd_pass    factor + eliminate known rhs, all levels
-    K2 crp_fwd_level          eliminate a new rhs against a stored level
+    K1 crp_factor_fwd_pass    factor + eliminate known rhs, all levels,
+                              then invert and apply the root block
+    K2 crp_fwd_pass           eliminate a new rhs against a stored factor,
+                              all levels, then apply the root inverse
     K3 crp_bwd_pass           back-substitute, all levels
-    K4 crp_root               invert/apply the root block
+    K4 crp_root               invert the root block (``crp_factor``)
     K5 crp_factor_level       factor one level (no rhs)
 
-K1 and K3 run a whole pass in one launch, one thread block per lane; K2
-and K5 run one launch per level, with the even/odd split and the
-one-block shifts between levels in plain torch.  Each wrapper below
+K1, K2 and K3 run a whole pass in one launch, so a factor + solve is two
+launches (K1, K3) and a solve with a stored factor two (K2, K3).  K5 runs
+one launch per level, with the even/odd split and the one-block shifts
+between levels in plain torch, and K4 after it.  Each wrapper below
 launches its kernel for a CUDA tensor and uses its plain PyTorch twin
 (same elimination order, same unrolled-Cholesky pivots) for a CPU tensor;
 nothing else selects between them.  Each counts its launches in
@@ -168,7 +171,7 @@ def factor_fwd_level_plain(Mo, Me, OL, OR, Fo, Fe):
 
 
 def fwd_level_plain(Minv, OL, OR, fo, fe):
-    """Twin of K2: fe2 = fe - OL Minv fo, br = OR^T Minv fo."""
+    """One level of K2: fe2 = fe - OL Minv fo, br = OR^T Minv fo."""
     g = _mm(Minv, fo)
     return fe - _mm(OL, g), _mm_tn(OR, g)
 
@@ -181,8 +184,8 @@ def bwd_level_plain(Minv, OL, OR, fo, xe, xs):
 def factor_fwd_pass_plain(M, O, F, Bb):
     """Twin of K1: every level of the fused factor + rhs elimination over
     the slabs M, O (11, 11, n_pad*B), F (11, m, n_pad*B) -> (levels, stack,
-    M_root, F_root): per level (Minv, OL, OR) and Fo, then the root block's
-    M (11, 11, B) and F (11, m, B)."""
+    root_inv, x): per level (Minv, OL, OR) and Fo, then the root block's
+    inverse (11, 11, B) and solution root_inv F_root (11, m, B)."""
     levels, stack = [], []
     p = M.shape[2] // Bb
     while p > 1:
@@ -197,7 +200,21 @@ def factor_fwd_pass_plain(M, O, F, Bb):
         levels.append((Minv, OL, OR))
         stack.append(Fo)
         p //= 2
-    return levels, stack, M, F
+    root_inv = root_plain(M)
+    return levels, stack, root_inv, _mm(root_inv, F)
+
+
+def fwd_pass_plain(levels, root_inv, f, Bb):
+    """Twin of K2: eliminate the rhs slab f (11, m, n_pad*B) level by level
+    against a stored factor -> (stack, x): per level the blocks fo the solve
+    saves, then the root solution root_inv f_root (11, m, B)."""
+    stack = []
+    for (Minv, OL, OR) in levels:
+        fe, fo = _split_oe(f, Bb)
+        fe2, br = fwd_level_plain(Minv, OL, OR, fo, fe)
+        f = (fe2 - _shift_fwd(br, Bb)).contiguous()
+        stack.append(fo)
+    return stack, _mm(root_inv, f)
 
 
 def bwd_pass_plain(levels, stack, x, Bb):
@@ -209,10 +226,9 @@ def bwd_pass_plain(levels, stack, x, Bb):
     return x
 
 
-def root_plain(A, F, invert):
-    """Twin of K4: (A^-1, A^-1 F) when inverting, else (A, A F)."""
-    R = _spd_inverse_slab(A) if invert else A
-    return R, _mm(R, F)
+def root_plain(A):
+    """Twin of K4: the inverse of the SPD root blocks A (11, 11, B)."""
+    return _spd_inverse_slab(A)
 
 
 # ---------------------------------------------------------------------------
@@ -233,21 +249,14 @@ def _check_device(name, ts):
             raise ValueError(f"{name}: operands must be contiguous")
 
 
-def _check(name, blocks, rhs):
-    """Validate the slabs handed to a kernel; returns (L, m)."""
+def _check(name, blocks):
+    """Validate the (11, 11, L) slabs handed to a kernel; returns L."""
     L = blocks[0].shape[2]
-    m = rhs[0].shape[1] if rhs else 0
-    _check_device(name, blocks + rhs)
-    for t in blocks + rhs:
-        if t.dim() != 3 or t.shape[2] != L or t.shape[0] != _NB:
-            raise ValueError(f"{name}: bad slab shape {tuple(t.shape)}")
+    _check_device(name, blocks)
     for t in blocks:
-        if t.shape[1] != _NB:
-            raise ValueError(f"{name}: block slabs must be ({_NB}, {_NB}, L)")
-    for t in rhs:
-        if t.shape[1] != m:
-            raise ValueError(f"{name}: rhs slabs disagree on width")
-    return L, m
+        if t.shape != (_NB, _NB, L):
+            raise ValueError(f"{name}: bad slab shape {tuple(t.shape)}")
+    return L
 
 
 def _ptr(t):
@@ -280,9 +289,10 @@ def _check_shapes(name, pairs):
 
 
 def crp_factor_fwd_pass(M, O, F):
-    """K1 (replaces crkern.py:_factor_fwd_kernel at every level).  Batch-first
-    M, O (B, n_pad, 11, 11) and rhs F (B, n_pad, 11, m), n_pad a power of two
-    -> (levels, stack, M_root, F_root) as :func:`factor_fwd_pass_plain`."""
+    """K1 (replaces crkern.py:_factor_fwd_kernel at every level, then
+    _root_kernel).  Batch-first M, O (B, n_pad, 11, 11) and rhs F
+    (B, n_pad, 11, m), n_pad a power of two -> (levels, stack, root_inv, x)
+    as :func:`factor_fwd_pass_plain`."""
     Bb = M.shape[0]
     if M.device.type == "cpu":
         return factor_fwd_pass_plain(_to_slab(M), _to_slab(O), _to_slab(F), Bb)
@@ -295,16 +305,15 @@ def crp_factor_fwd_pass(M, O, F):
     hs = [n_pad >> (l + 1) for l in range(n_levels)]
     levels = [(new(_NB, h), new(_NB, h), new(_NB, h)) for h in hs]
     stack = [new(m, h) for h in hs]
-    M_root, F_root = new(_NB, 1), new(m, 1)
+    root_inv, x = new(_NB, 1), new(m, 1)
     lib = _build.load_library()
     code = lib.crp_factor_fwd_pass(
         _ptr(M), _ptr(O), _ptr(F), *(_ptr_array([lv[i] for lv in levels])
                                      for i in range(3)),
-        _ptr_array(stack), _ptr(M_root), _ptr(F_root), Bb, n_pad, m,
-        _stream(M))
+        _ptr_array(stack), _ptr(root_inv), _ptr(x), Bb, n_pad, m, _stream(M))
     crp_factor_fwd_pass.launches += 1
     _build.check(lib, code, name)
-    return levels, stack, M_root, F_root
+    return levels, stack, root_inv, x
 
 
 def crp_factor_level(Mo, Me, OL, OR):
@@ -312,7 +321,7 @@ def crp_factor_level(Mo, Me, OL, OR):
     (Minv, Mhalf, Onext, S)."""
     if Mo.device.type == "cpu":
         return factor_level_plain(Mo, Me, OL, OR)
-    L, _ = _check("crp_factor_level", [Mo, Me, OL, OR], [])
+    L = _check("crp_factor_level", [Mo, Me, OL, OR])
     outs = [torch.empty_like(Mo) for _ in range(4)]
     lib = _build.load_library()
     code = lib.crp_factor_level(*map(_ptr, (Mo, Me, OL, OR)), *map(_ptr, outs),
@@ -322,18 +331,41 @@ def crp_factor_level(Mo, Me, OL, OR):
     return tuple(outs)
 
 
-def crp_fwd_level(Minv, OL, OR, fo, fe):
-    """K2 (replaces crkern.py:_fwd_kernel) -> (fe2, br)."""
-    if Minv.device.type == "cpu":
-        return fwd_level_plain(Minv, OL, OR, fo, fe)
-    L, m = _check("crp_fwd_level", [Minv, OL, OR], [fo, fe])
-    fe2, br = torch.empty_like(fo), torch.empty_like(fo)
+def _factor_pairs(levels, Bb, n_pad):
+    """(slab, expected shape) pairs of a factor's per-level slabs."""
+    pairs = []
+    for l, lv in enumerate(levels):
+        L = (n_pad >> (l + 1)) * Bb
+        pairs += [(t, (_NB, _NB, L)) for t in lv]
+    return pairs
+
+
+def crp_fwd_pass(levels, root_inv, f):
+    """K2 (replaces crkern.py:_fwd_kernel at every level, then
+    _root_solve_kernel).  ``levels``, ``root_inv``: a factor as
+    :func:`crp_factor` returns it; ``f`` (B, n_pad, 11, m) batch-first ->
+    (stack, x) as :func:`fwd_pass_plain`: per level the slab fo the
+    back-substitution reads, and the root solution (11, m, B)."""
+    Bb = f.shape[0]
+    if f.device.type == "cpu":
+        return fwd_pass_plain(levels, root_inv, _to_slab(f), Bb)
+    name = "crp_fwd_pass"
+    n_pad, m = f.shape[1], f.shape[-1]
+    if _levels_of(n_pad) != len(levels):
+        raise ValueError(f"{name}: {len(levels)} levels for {n_pad} blocks")
+    _check_shapes(name, [(f, (Bb, n_pad, _NB, m)), (root_inv, (_NB, _NB, Bb))]
+                  + _factor_pairs(levels, Bb, n_pad))
+    stack = [torch.empty(_NB, m, (n_pad >> (l + 1)) * Bb, dtype=f.dtype,
+                         device=f.device) for l in range(len(levels))]
+    x = torch.empty(_NB, m, Bb, dtype=f.dtype, device=f.device)
     lib = _build.load_library()
-    code = lib.crp_fwd_level(*map(_ptr, (Minv, OL, OR, fo, fe, fe2, br)), L, m,
-                             _stream(Minv))
-    crp_fwd_level.launches += 1
-    _build.check(lib, code, "crp_fwd_level")
-    return fe2, br
+    code = lib.crp_fwd_pass(
+        *(_ptr_array([lv[i] for lv in levels]) for i in range(3)),
+        _ptr(root_inv), _ptr(f), _ptr_array(stack), _ptr(x), Bb, n_pad, m,
+        _stream(f))
+    crp_fwd_pass.launches += 1
+    _build.check(lib, code, name)
+    return stack, x
 
 
 def crp_bwd_pass(levels, stack, x):
@@ -349,12 +381,9 @@ def crp_bwd_pass(levels, stack, x):
     _levels_of(n_pad)
     if len(stack) != len(levels):
         raise ValueError(f"{name}: {len(levels)} levels, {len(stack)} rhs")
-    pairs = [(x, (_NB, m, Bb))]
-    for l, ((Minv, OL, OR), fo) in enumerate(zip(levels, stack)):
-        L = (n_pad >> (l + 1)) * Bb
-        pairs += [(Minv, (_NB, _NB, L)), (OL, (_NB, _NB, L)),
-                  (OR, (_NB, _NB, L)), (fo, (_NB, m, L))]
-    _check_shapes(name, pairs)
+    _check_shapes(name, [(x, (_NB, m, Bb))] + _factor_pairs(levels, Bb, n_pad)
+                  + [(fo, (_NB, m, (n_pad >> (l + 1)) * Bb))
+                     for l, fo in enumerate(stack)])
     X = torch.empty(Bb, n_pad, _NB, m, dtype=x.dtype, device=x.device)
     lib = _build.load_library()
     code = lib.crp_bwd_pass(
@@ -365,24 +394,21 @@ def crp_bwd_pass(levels, stack, x):
     return X
 
 
-def crp_root(A, F, invert):
-    """K4 (replaces crkern.py:_root_kernel and _root_solve_kernel).
-    ``invert``: A is the root block -> (A^-1, A^-1 F); else A is the stored
-    inverse -> (A, A F)."""
+def crp_root(A):
+    """K4 (replaces crkern.py:_root_kernel for :func:`crp_factor`).  The SPD
+    root blocks A (11, 11, L) -> A^-1."""
     if A.device.type == "cpu":
-        return root_plain(A, F, invert)
-    L, m = _check("crp_root", [A], [F])
-    X = torch.empty_like(F)
-    Rinv = torch.empty_like(A) if invert else A
+        return root_plain(A)
+    L = _check("crp_root", [A])
+    Rinv = torch.empty_like(A)
     lib = _build.load_library()
-    code = lib.crp_root(_ptr(A), _ptr(F), _ptr(Rinv) if invert else None,
-                        _ptr(X), L, m, int(bool(invert)), _stream(A))
+    code = lib.crp_root(_ptr(A), _ptr(Rinv), L, _stream(A))
     crp_root.launches += 1
     _build.check(lib, code, "crp_root")
-    return Rinv, X
+    return Rinv
 
 
-KERNELS = (crp_factor_fwd_pass, crp_fwd_level, crp_bwd_pass, crp_root,
+KERNELS = (crp_factor_fwd_pass, crp_fwd_pass, crp_bwd_pass, crp_root,
            crp_factor_level)
 for _k in KERNELS:
     _k.launches = 0
@@ -410,8 +436,7 @@ def _factor_slab(M, O, Bb):
         O = Onext
         levels.append((Minv, OL, OR))
         p //= 2
-    root_inv, _ = crp_root(M, M.new_empty(M.shape[0], 0, Bb), invert=True)
-    return levels, root_inv
+    return levels, crp_root(M)
 
 
 # ---------------------------------------------------------------------------
@@ -461,30 +486,21 @@ def crp_factor(M, O):
 
 
 def crp_factor_solve(M, O, F):
-    """Fused factor + multi-rhs solve of B chains: K1, K4, K3, one launch
-    each.
+    """Fused factor + multi-rhs solve of B chains: K1, then K3.
 
     ``M``, ``O`` as :func:`crp_factor`; ``F``: (B, n, b, m) rhs columns
     known before the factor.  Returns ``(levels, root_inv, X)``: ``X``
     (B, n_pad, b, m) solves each chain (callers slice ``[:, :n]``), and
     ``(levels, root_inv)`` is the factor :func:`crp_factor` returns."""
     M, O, p = _pad_chain(M, O)
-    levels, stack, M_root, F_root = crp_factor_fwd_pass(
+    levels, stack, root_inv, x = crp_factor_fwd_pass(
         M.contiguous(), O.contiguous(), crp_pad_rhs(F, p).contiguous())
-    root_inv, x = crp_root(M_root, F_root, invert=True)
     return tuple(levels), root_inv, crp_bwd_pass(levels, stack, x)
 
 
 def crp_solve(levels, root_inv, f):
-    """Solve with a :func:`crp_factor` / :func:`crp_factor_solve` factor: one
-    K2 launch per level, then K4 and K3.  ``f`` (B, n_pad, b, m)
-    zero-padded by :func:`crp_pad_rhs`; returns (B, n_pad, b, m)."""
-    Bb = f.shape[0]
-    f, stack = _to_slab(f), []
-    for (Minv, OL, OR) in levels:
-        fe, fo = _split_oe(f, Bb)
-        fe2, br = crp_fwd_level(Minv, OL, OR, fo, fe)
-        f = (fe2 - _shift_fwd(br, Bb)).contiguous()
-        stack.append(fo)
-    _, x = crp_root(root_inv, f, invert=False)
+    """Solve with a :func:`crp_factor` / :func:`crp_factor_solve` factor: K2,
+    then K3.  ``f`` (B, n_pad, b, m) zero-padded by :func:`crp_pad_rhs`;
+    returns (B, n_pad, b, m)."""
+    stack, x = crp_fwd_pass(levels, root_inv, f.contiguous())
     return crp_bwd_pass(levels, stack, x)

@@ -11,7 +11,7 @@ by eliminating the duals first, leaving the condensed primal system
 in the node variables plus a small border (z_0, dt, slacks).  ``chain``
 names how the block-tridiagonal part is factored and solved:
 
-    "crp"     cyclic reduction through the CUDA level kernels K1-K4
+    "crp"     cyclic reduction through the CUDA pass kernels K1-K3
               (``ops/crkern.py``), the border columns eliminated in the
               factor pass; the flagship's chain
     "pallas"  the fused sequential chain through the CUDA kernels K6-K8

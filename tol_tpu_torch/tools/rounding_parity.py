@@ -4,9 +4,10 @@
 
 ``OTHER_TREE`` is another checkout of this repository, for example an
 earlier commit unpacked with ``git archive <commit> | tar -x -C build/other``
-(``build/`` is ignored by git).  Each tree's ``crp_factor_solve`` (K1, K4,
-K3) and ``crp_solve`` (K2, K4, K3) run on the same seeded chains at the S10
-solve's shapes: 128 lanes of 100 blocks padded to 128 (7 CR levels), 12
+(``build/`` is ignored by git).  Each tree's ``crp_factor_solve`` (here K1,
+then K3) and ``crp_solve`` (here K2, then K3; in a tree whose K2 runs one
+launch per level, those and a K4 launch in either solve) run on the same
+seeded chains at the S10 solve's shapes: 128 lanes of 100 blocks padded to 128 (7 CR levels), 12
 border columns and one solve column.  Each tree runs twice, in a process of
 its own: built with nvcc's default, which may fuse a product and a sum into
 one FMA, and built with ``-fmad=false``, which rounds every product and
