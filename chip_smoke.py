@@ -7,7 +7,13 @@ Phases, each of which must pass (any failure exits non-zero and prints no
 ``ok`` line):
 
 1. build   — compile every kernel source under ``tol_tpu_torch/csrc`` with
-             nvcc, one compiler per source, all at once (timed as set-up).
+             nvcc, one compiler per source, all at once, beside
+             ``tol_tpu_torch/tools/chain_clock.cu`` (timed as set-up).
+   clock   — ``chain_clock``: clock64 traces of a chain step of K6 and K8
+             (the second slice's kernels and the shipped ones), the latency
+             of a square root, quotient and FMA, and K6's fast-path square
+             root and quotient against the library's on 2^26 operands each
+             (any differing bits fail the phase).
 2. kernels — hold each of the eight kernels against its plain PyTorch twin
              on the card at the solves' shapes: the cyclic-reduction
              kernels K1-K5 at 11x11 blocks, B=128 lanes, T=100 blocks
@@ -22,6 +28,9 @@ Phases, each of which must pass (any failure exits non-zero and prints no
              CUDA events, each kernel also by its own device time under
              torch.profiler, and each kernel's bound is reckoned; for K6-K8
              also the floor that the T dependent steps set.
+   sweep   — K6 and K8 at every lane group size and thread count of
+             SWEEP: device time; every shape must give the shipped shape's
+             bits.
 3. chains  — the same 128 chains of T=100 blocks solved by
              ``crp_factor`` + ``crp_solve``, by ``crp_factor_solve``, by
              ``chain_eliminate`` + ``chain_rhs_forward`` +
@@ -58,6 +67,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -121,6 +131,18 @@ CHAIN_KERNELS = ("chain_factor", "chain_rhs_forward", "chain_back_sub")
 CHAIN_DEPTH = {"chain_factor": 77 + 77 + 77 + 11 + 11,
                "chain_rhs_forward": 1 + 11 + 11,
                "chain_back_sub": 11 + 1}
+# The same operations by kind (K6: 11 square roots, 33 quotients — 11 in
+# the Cholesky, 22 in an inverse column — and 209 products, FMAs or
+# subtractions), for the floor restated with the latencies the clock phase
+# measures on the card (``chain_floor_ms_measured_latency``).
+CHAIN_OPS = {"chain_factor": dict(sqrt=11, quotient=33, ffma=209),
+             "chain_rhs_forward": dict(ffma=23),
+             "chain_back_sub": dict(ffma=12)}
+# Launch shapes of the sweep: (lanes per thread block, threads per block).
+SWEEP = {"chain_factor": [(G, th) for G in (1, 2, 4, 8)
+                          for th in (64, 128, 256) if th > 16 * G],
+         "chain_back_sub": [(G, th) for G in (1, 2, 4)
+                            for th in (64, 128, 256)]}
 
 
 class SmokeFailure(Exception):
@@ -158,12 +180,17 @@ def _reset_launch_counts(ck, ch) -> None:
 # ---------------------------------------------------------------------------
 
 def _ptxas_by_kernel(reports):
-    """{kernel: registers and spill bytes} from nvcc's -Xptxas -v reports."""
+    """{kernel: registers and spill bytes} from nvcc's -Xptxas -v reports;
+    a kernel instantiated per lane group size G (K6, K8) as
+    ``"<kernel>[G=<G>]"``."""
     out, cur = {}, None
     for ln in (ln for r in reports for ln in r.splitlines()):
         if "Compiling entry function" in ln:
             hits = [k for k, sym in SYMBOLS.items() if sym in ln]
             cur = max(hits, key=lambda k: len(SYMBOLS[k])) if hits else None
+            group = re.search(r"ILi(\d+)E", ln)
+            if cur and group:
+                cur = f"{cur}[G={group.group(1)}]"
             if cur:
                 out[cur] = {}
         elif cur and "spill stores" in ln:
@@ -469,8 +496,9 @@ def _chain_cases(torch, ch, gen, dev):
     return cases
 
 
-def check_kernels(torch, ck, ch, dev):
-    """Phase 2.  Returns the per-kernel records of the kernels line."""
+def check_kernels(torch, ck, ch, dev, latency):
+    """Phase 2.  Returns the per-kernel records of the kernels line;
+    ``latency`` holds the clock phase's cycles per sqrt, quotient and FMA."""
     gen = torch.Generator(device=dev).manual_seed(1)
     sm_hz = float(_nvidia_smi("clocks.max.sm").split()[0]) * 1e6
     cases = _cr_cases(torch, ck, gen, dev)
@@ -537,6 +565,9 @@ def check_kernels(torch, ck, ch, dev):
             # SM clock, whatever the bytes
             records[name]["chain_floor_ms"] = (
                 TS * CHAIN_DEPTH[name] * DEP_OP_CYCLES / sm_hz * 1e3)
+            records[name]["chain_floor_ms_measured_latency"] = TS * sum(
+                n * latency[op] for op, n in CHAIN_OPS[name].items()
+            ) / sm_hz * 1e3
             extra = case["extra"]
             records[name]["ms_border_14"] = _time_ms(
                 torch, lambda: [case["kernel"](*a) for a in extra], 50)
@@ -548,6 +579,33 @@ def check_kernels(torch, ck, ch, dev):
     records["crp_root"]["library_ms"] = _time_ms(
         torch, lambda: torch.linalg.inv(Mr), 50)
     return records
+
+
+def sweep_chain_kernels(torch, ch, dev):
+    """K6 and K8 at every launch shape of SWEEP on the kernels phase's
+    shapes (T = TS, B_LANES lanes, border width 12, 13): device ms under
+    torch.profiler (20 runs), ms by CUDA events, and whether the outputs
+    have the bits of the shipped shape's."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cases = _chain_cases(torch, ch, gen, dev)
+    out = {}
+    for name, grid in SWEEP.items():
+        kernel, args = cases[name]["kernel"], cases[name]["inputs"][0]
+        ref = _tuple(kernel(*args))
+        rows = []
+        for G, th in grid:
+            run = lambda: kernel(*args, group=G, threads=th)
+            got = _tuple(run())
+            rows.append(dict(
+                group=G, threads=th,
+                device_ms=_device_ms(torch, run, SYMBOLS[name], 20),
+                ms=_time_ms(torch, run, 20),
+                same_bits=all(bool(torch.equal(g, r))
+                              for g, r in zip(got, ref))))
+        _require(all(r["same_bits"] for r in rows),
+                 f"{name}: the bits depend on the launch shape")
+        out[name] = rows
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -813,6 +871,8 @@ def profile_iterations(torch, ck, ch, can, v0s, bodies):
         busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
         ours_ms = sum(e.self_device_time_total for e in kernels
                       if any(s in e.key for s in ours)) / 1e3
+        by_kernel = {k: sum(e.self_device_time_total for e in kernels
+                            if SYMBOLS[k] in e.key) / 1e3 for k in per_step}
         measured = busy_ms > 0
         out[name] = dict(
             wall_ms=1e3 * wall, chain=chain, launches_per_step=per_step,
@@ -820,6 +880,7 @@ def profile_iterations(torch, ck, ch, can, v0s, bodies):
             device_idle_share=(1.0 - busy_ms / (1e3 * wall)) if measured
             else None,
             hand_kernels_ms=ours_ms if measured else None,
+            hand_kernels_ms_by_kernel=by_kernel if measured else None,
             kernel_launches=sum(e.count for e in kernels) if measured else None)
     return out
 
@@ -837,6 +898,7 @@ def main() -> int:
     from tol_tpu_torch.ops import _build
     from tol_tpu_torch.ops import chainkern as ch
     from tol_tpu_torch.ops import crkern as ck
+    from tol_tpu_torch.tools import chain_clock
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -844,9 +906,11 @@ def main() -> int:
     t_start = time.time()
     try:
         t0 = time.time()
+        clock_build = chain_clock.start_build()
         built = _build.build()
         for name in built:
             _build.load_library(name)
+        clock_so, _ = chain_clock.load(clock_build)
         ptxas = _ptxas_by_kernel([report for _, report in built.values()])
         print(json.dumps(dict(
             phase="build", seconds=time.time() - t0,
@@ -854,11 +918,32 @@ def main() -> int:
             ptxas_by_kernel=ptxas)), flush=True)
 
         t0 = time.time()
-        records = check_kernels(torch, ck, ch, dev)
+        clock = chain_clock.run(torch, clock_so, ch.K6_GROUP, ch.K6_THREADS,
+                                ch.K8_GROUP, ch.K8_THREADS)
+        print(json.dumps(dict(phase="clock", seconds=time.time() - t0,
+                              **clock)), flush=True)
+        fast = clock["fast_ops_vs_ieee"]
+        _require(fast["sqrt_bits_differ"] == 0
+                 and fast["quotient_bits_differ"] == 0,
+                 f"K6's fast square root or quotient differs from IEEE: {fast}")
+
+        t0 = time.time()
+        records = check_kernels(torch, ck, ch, dev, clock["latency_cycles"])
+        shipped = {"chain_factor": ch.K6_GROUP, "chain_back_sub": ch.K8_GROUP}
         for name, rec in records.items():
-            rec["ptxas"] = ptxas.get(name)
+            rec["ptxas"] = ptxas.get(f"{name}[G={shipped.get(name)}]",
+                                     ptxas.get(name))
         print(json.dumps(dict(phase="kernels", seconds=time.time() - t0,
                               tolerance_rel=TOL_REL)), flush=True)
+
+        t0 = time.time()
+        sweep = sweep_chain_kernels(torch, ch, dev)
+        print(json.dumps(dict(phase="sweep", seconds=time.time() - t0,
+                              shipped={"chain_factor": [ch.K6_GROUP,
+                                                        ch.K6_THREADS],
+                                       "chain_back_sub": [ch.K8_GROUP,
+                                                          ch.K8_THREADS]},
+                              **sweep)), flush=True)
 
         t0 = time.time()
         chains, by_path = check_chains(torch, ck, ch, dev)

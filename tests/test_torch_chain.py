@@ -228,6 +228,65 @@ _SHIM = r"""
 typedef const double* In;
 typedef double* Out;
 using crk::NB;
+// K6 over B lanes by the block-step routines: the three phases, the
+// columns of each phase in turn, per-lane scratch at stride 1.
+template <typename T>
+void chain_factor_steps(const T* M, const T* O, const T* R, T* Dinv, T* t2,
+                        T* tR, T* S, int Tn, int nC, long B) {
+  const int n2 = NB * NB;
+  for (long b = 0; b < B; ++b) {
+    std::vector<T> Lc(n2), Dv(n2), dcorr(n2, T(0)), Rt(NB * nC),
+        rcorr(NB * nC, T(0)), sacc(nC * nC, T(0));
+    for (int i = 0; i < Tn; ++i) {
+      const T* Mi = M + (long)i * n2 * B + b;
+      const T* Oi = O + (long)i * n2 * B + b;
+      const T* Ri = R + (long)i * NB * nC * B + b;
+      crk::chain_chol<T>(Mi, B, dcorr.data(), 1, Lc.data(), 1);
+      for (int q = 0; q < nC; ++q)
+        crk::chain_rt_column<T>(Ri, B, rcorr.data(), 1, Rt.data(), 1, nC, q);
+      for (int c = 0; c < NB; ++c)
+        crk::chain_inverse_column<T>(Lc.data(), 1, c, Dv.data(), 1,
+                                     Dinv + (long)i * n2 * B + b, B);
+      for (int q = 0; q < NB + nC; ++q)
+        crk::chain_factor_column<T>(
+            Dv.data(), 1, Oi, B, Rt.data(), 1, t2 + (long)i * n2 * B + b,
+            tR + (long)i * NB * nC * B + b, B, dcorr.data(), 1, rcorr.data(), 1,
+            sacc.data(), 1, nC, q);
+    }
+    for (int e = 0; e < nC * nC; ++e) S[(long)e * B + b] = sacc[e];
+  }
+}
+// K6 by the whole-chain routine, lane group after lane group.
+template <typename T>
+void chain_factor_pass(const T* M, const T* O, const T* R, T* Dinv, T* t2,
+                       T* tR, T* S, int Tn, int nC, long B, int G) {
+  std::vector<T> smem(G * crk::chain_factor_floats(nC));
+  for (long l0 = 0; l0 < B; l0 += G)
+    crk::chain_factor_pass(crk::SerialChainTeam{}, M, O, R, Dinv, t2, tR, S,
+                           Tn, nC, B, l0, G, smem.data());
+}
+// K8 by the block-step routine.
+template <typename T>
+void back_sub_steps(const T* tR, const T* t2, const T* coef, T* x, int Tn,
+                    int nC, long B) {
+  const int n2 = NB * NB;
+  for (long b = 0; b < B; ++b) {
+    T xn[NB] = {0};
+    for (int i = Tn - 1; i >= 0; --i)
+      crk::chain_back_sub_block<T>(
+          tR + (long)i * NB * nC * B + b, t2 + (long)i * n2 * B + b, coef + b, B,
+          x + (long)i * NB * B + b, B, xn, nC);
+  }
+}
+// K8 by the whole-chain routine, Tc steps a chunk.
+template <typename T>
+void back_sub_pass(const T* tR, const T* t2, const T* coef, T* x, int Tn,
+                   int nC, long B, int G, int Tc) {
+  std::vector<T> smem(G * crk::back_sub_floats(Tc));
+  for (long l0 = 0; l0 < B; l0 += G)
+    crk::back_sub_pass(crk::SerialChainTeam{}, tR, t2, coef, x, Tn, nC, B, l0,
+                       G, Tc, smem.data());
+}
 extern "C" {
 // K5 over L columns.
 void h_factor(In Mo, In Me, In OL, In OR, Out a, Out b, Out c, Out d, long L) {
@@ -237,41 +296,18 @@ void h_factor(In Mo, In Me, In OL, In OR, Out a, Out b, Out c, Out d, long L) {
                                c + k, d + k, L, inv);
   }
 }
-// K6 over B lanes: the kernel's three phases, the columns of each phase in
-// turn, per-lane scratch at stride 1.
-void h_chain_factor(In M, In O, In R, Out Dinv, Out t2, Out tR, Out S, int T,
+void h_chain_factor(In M, In O, In R, Out Dinv, Out t2, Out tR, Out S, int Tn,
                     int nC, long B) {
-  const int n2 = NB * NB;
-  for (long b = 0; b < B; ++b) {
-    std::vector<double> Lc(n2), Dv(n2), dcorr(n2, 0.0), Rt(NB * nC),
-        rcorr(NB * nC, 0.0), sacc(nC * nC, 0.0);
-    for (int i = 0; i < T; ++i) {
-      In Mi = M + (long)i * n2 * B + b;
-      In Oi = O + (long)i * n2 * B + b;
-      In Ri = R + (long)i * NB * nC * B + b;
-      crk::chain_chol<double>(Mi, B, dcorr.data(), 1, Lc.data(), 1);
-      for (int q = 0; q < nC; ++q)
-        crk::chain_rt_column<double>(Ri, B, rcorr.data(), 1, Rt.data(), 1, nC, q);
-      for (int c = 0; c < NB; ++c)
-        crk::chain_inverse_column<double>(Lc.data(), 1, c, Dv.data(), 1,
-                                          Dinv + (long)i * n2 * B + b, B);
-      for (int q = 0; q < NB + nC; ++q)
-        crk::chain_factor_column<double>(
-            Dv.data(), 1, Oi, B, Rt.data(), 1, t2 + (long)i * n2 * B + b,
-            tR + (long)i * NB * nC * B + b, B, dcorr.data(), 1, rcorr.data(), 1,
-            sacc.data(), 1, nC, q);
-    }
-    for (int e = 0; e < nC * nC; ++e) S[(long)e * B + b] = sacc[e];
-  }
+  chain_factor_steps(M, O, R, Dinv, t2, tR, S, Tn, nC, B);
 }
 // K7 over B lanes.
-void h_chain_rhs_forward(In Dinv, In O, In tRw, In r, Out tr, Out sb, int T,
+void h_chain_rhs_forward(In Dinv, In O, In tRw, In r, Out tr, Out sb, int Tn,
                          int nB, long B) {
   const int n2 = NB * NB;
   for (long b = 0; b < B; ++b) {
     double rcorr[NB] = {0};
     std::vector<double> acc(nB, 0.0);
-    for (int i = 0; i < T; ++i)
+    for (int i = 0; i < Tn; ++i)
       crk::chain_rhs_forward_block<double>(
           Dinv + (long)i * n2 * B + b, O + (long)i * n2 * B + b,
           tRw + (long)i * NB * nB * B + b, r + (long)i * NB * B + b,
@@ -279,16 +315,34 @@ void h_chain_rhs_forward(In Dinv, In O, In tRw, In r, Out tr, Out sb, int T,
     for (int p = 0; p < nB; ++p) sb[(long)p * B + b] = acc[p];
   }
 }
-// K8 over B lanes.
-void h_chain_back_sub(In tR, In t2, In coef, Out x, int T, int nC, long B) {
-  const int n2 = NB * NB;
-  for (long b = 0; b < B; ++b) {
-    double xn[NB] = {0};
-    for (int i = T - 1; i >= 0; --i)
-      crk::chain_back_sub_block<double>(
-          tR + (long)i * NB * nC * B + b, t2 + (long)i * n2 * B + b, coef + b, B,
-          x + (long)i * NB * B + b, B, xn, nC);
-  }
+void h_chain_back_sub(In tR, In t2, In coef, Out x, int Tn, int nC, long B) {
+  back_sub_steps(tR, t2, coef, x, Tn, nC, B);
+}
+void h_chain_factor_pass(In M, In O, In R, Out Dinv, Out t2, Out tR, Out S,
+                         int Tn, int nC, long B, int G) {
+  chain_factor_pass(M, O, R, Dinv, t2, tR, S, Tn, nC, B, G);
+}
+void h_back_sub_pass(In tR, In t2, In coef, Out x, int Tn, int nC, long B,
+                     int G, int Tc) {
+  back_sub_pass(tR, t2, coef, x, Tn, nC, B, G, Tc);
+}
+// float32, as the card runs them (built without contraction into FMAs)
+typedef const float* Fi;
+typedef float* Fo;
+void f_chain_factor(Fi M, Fi O, Fi R, Fo Dinv, Fo t2, Fo tR, Fo S, int Tn,
+                    int nC, long B) {
+  chain_factor_steps(M, O, R, Dinv, t2, tR, S, Tn, nC, B);
+}
+void f_chain_factor_pass(Fi M, Fi O, Fi R, Fo Dinv, Fo t2, Fo tR, Fo S, int Tn,
+                         int nC, long B, int G) {
+  chain_factor_pass(M, O, R, Dinv, t2, tR, S, Tn, nC, B, G);
+}
+void f_chain_back_sub(Fi tR, Fi t2, Fi coef, Fo x, int Tn, int nC, long B) {
+  back_sub_steps(tR, t2, coef, x, Tn, nC, B);
+}
+void f_back_sub_pass(Fi tR, Fi t2, Fi coef, Fo x, int Tn, int nC, long B, int G,
+                     int Tc) {
+  back_sub_pass(tR, t2, coef, x, Tn, nC, B, G, Tc);
 }
 }
 """
@@ -304,14 +358,18 @@ def host_kernels(tmp_path_factory):
     src = d / "shim.cpp"
     src.write_text(_SHIM)
     lib = d / "libchainkern_host.so"
-    subprocess.run([gxx, "-O2", "-shared", "-fPIC", "-std=c++17", "-I", CSRC,
-                    "-o", str(lib), str(src)], check=True)
+    subprocess.run([gxx, "-O2", "-ffp-contract=off", "-shared", "-fPIC",
+                    "-std=c++17", "-I", CSRC, "-o", str(lib), str(src)],
+                   check=True)
     so = ctypes.CDLL(str(lib))
     P, Li, I = ctypes.c_void_p, ctypes.c_long, ctypes.c_int
     so.h_factor.argtypes = [P] * 8 + [Li]
-    so.h_chain_factor.argtypes = [P] * 7 + [I, I, Li]
     so.h_chain_rhs_forward.argtypes = [P] * 6 + [I, I, Li]
-    so.h_chain_back_sub.argtypes = [P] * 4 + [I, I, Li]
+    for prefix in ("h_", "f_"):
+        getattr(so, prefix + "chain_factor").argtypes = [P] * 7 + [I, I, Li]
+        getattr(so, prefix + "chain_factor_pass").argtypes = [P] * 7 + [I, I, Li, I]
+        getattr(so, prefix + "chain_back_sub").argtypes = [P] * 4 + [I, I, Li]
+        getattr(so, prefix + "back_sub_pass").argtypes = [P] * 4 + [I, I, Li, I, I]
     return so
 
 
@@ -369,3 +427,76 @@ def test_factor_level_device_math_matches_twin(host_kernels):
     got = _call(host_kernels.h_factor, [Mo, Me, OL, OR],
                 [blk(), blk(), blk(), blk()], L)
     _assert_all_close(got, tck.factor_level_plain(Mo, Me, OL, OR))
+
+
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+@pytest.mark.parametrize("nC,T", [(12, 8), (14, 13)])
+def test_chain_pass_math_matches_twins(host_kernels, nC, T, G):
+    """K6's and K8's whole-chain routines (g++, float64) in the card's lane
+    groups against the plain twins.  B = 3 leaves the last group partial
+    for G = 2 and makes one partial group for G = 4, 8; lane 1 has an
+    indefinite pivot.  K8 runs at border width nC + 1 (13 and 15, as the
+    solves use it) in one chunk and in chunks of 3 steps."""
+    rng = np.random.default_rng(18)
+    B = 3
+    M, O, R = _bordered_chains(rng, B, T, nC, nan_lane=1)
+    M, O, R = [tch._lanes_last(_t(a)) for a in (M, O, R)]
+    z = lambda *s: torch.zeros(*s, dtype=torch.float64)
+    got = _call(host_kernels.h_chain_factor_pass, [M, O, R],
+                [z(T, NB, NB, B), z(T, NB, NB, B), z(T, NB, nC, B),
+                 z(nC, nC, B)], T, nC, B, G)
+    want = tch.factor_eliminate_plain(M, O, R)
+    _assert_all_close(got, want)
+    nan = torch.isnan(got[0]).flatten(1, 2).any(1)           # (T, B)
+    assert nan[:, 1].tolist() == [False, False] + [True] * (T - 2)
+    assert not nan[:, [0, 2]].any()
+    assert torch.isnan(got[3]).any(0).any(0).tolist() == [False, True, False]
+
+    _, t2, tRw, _ = want
+    tR = torch.cat([tRw, _t(rng.normal(size=(T, NB, 1, B)))], dim=2).contiguous()
+    coef = _t(rng.normal(size=(nC + 1, 1, B)))
+    want_x = tch.back_substitute_plain(tR, t2, coef)
+    for Tc in (T, 3):
+        got = _call(host_kernels.h_back_sub_pass, [tR, t2, coef], [z(T, NB, B)],
+                    T, nC + 1, B, G, Tc)
+        _assert_all_close(got, [want_x])
+
+
+def _same_bits(got, want):
+    return torch.equal(got.contiguous().view(torch.int32),
+                       want.contiguous().view(torch.int32))
+
+
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("nC", [12, 14])
+def test_chain_passes_are_the_block_steps_bitwise(host_kernels, nC, G):
+    """Same arithmetic, not only the same values: in float32, with no
+    contraction into FMAs, K6's and K8's whole-chain routines give the very
+    bits of the block-step routines walked step by step (chain_chol,
+    chain_rt_column, chain_inverse_column, chain_factor_column;
+    chain_back_sub_block), NaN lane included (lane 1, indefinite at block
+    2); K8 in one chunk and in chunks of 4 steps."""
+    rng = np.random.default_rng(19)
+    B, T = 3, 9
+    so = host_kernels
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32)
+    M, O, R = [tch._lanes_last(f32(a))
+               for a in _bordered_chains(rng, B, T, nC, nan_lane=1)]
+    e = lambda *s: torch.empty(*s, dtype=torch.float32)
+    outs = lambda: [e(T, NB, NB, B), e(T, NB, NB, B), e(T, NB, nC, B),
+                    e(nC, nC, B)]
+    want = _call(so.f_chain_factor, [M, O, R], outs(), T, nC, B)
+    got = _call(so.f_chain_factor_pass, [M, O, R], outs(), T, nC, B, G)
+    assert torch.isnan(want[3]).any()
+    for g, w in zip(got, want, strict=True):
+        assert _same_bits(g, w)
+
+    _, t2, tRw, _ = want
+    tR = torch.cat([tRw, f32(rng.normal(size=(T, NB, 1, B)))], dim=2).contiguous()
+    coef = f32(rng.normal(size=(nC + 1, 1, B)))
+    want = _call(so.f_chain_back_sub, [tR, t2, coef], [e(T, NB, B)], T, nC + 1,
+                 B)[0]
+    for Tc in (T, 4):
+        got = _call(so.f_back_sub_pass, [tR, t2, coef], [e(T, NB, B)], T,
+                    nC + 1, B, G, Tc)[0]
+        assert _same_bits(got, want)

@@ -241,3 +241,85 @@ def test_cuda_solves_launch_each_pass_kernel_once(cuda_device):
     ck.crp_solve(levels, root, F[..., :1].to(cuda_device))
     assert counts() == dict(crp_factor_fwd_pass=1, crp_fwd_pass=1,
                             crp_bwd_pass=2, crp_root=0, crp_factor_level=0)
+
+
+def _nan_lanes(t, B):
+    """Lanes (the trailing axis) that hold a NaN."""
+    return torch.isnan(t).reshape(-1, B).any(0).tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,threads", [(1, 64), (2, 128), (4, 256), (8, 256)])
+@pytest.mark.parametrize("B", [1, 37, 128])
+def test_cuda_chain_passes_hold_for_any_lane_group(cuda_device, G, threads, B):
+    """K6 and K8 at every lane group size G, with partial groups (B = 37
+    fills no group of 2, 4 or 8 evenly; B = 1 leaves one lane); lane B - 1
+    (of two or more) is indefinite at block 2 and must come out NaN alone,
+    from that block on and in S.  K8 at border widths 13 and 15."""
+    rng = np.random.default_rng(21)
+    T = 100
+    for nC in (12, 14):
+        M, O, R = (ch._lanes_last(t) for t in _chains(rng, B, T, 11, nC))
+        if B > 1:
+            M[2, :, :, B - 1] = -torch.eye(11)
+        want = ch.factor_eliminate_plain(M, O, R)
+        got = ch._factor_eliminate_batched(
+            *[t.to(cuda_device) for t in (M, O, R)], group=G, threads=threads)
+        lanes = [B > 1 and b == B - 1 for b in range(B)]
+        for g, w in zip(got, want):
+            g = g.cpu()
+            assert torch.equal(torch.isnan(g), torch.isnan(w))
+            assert _nan_lanes(g, B) == lanes
+            ok = ~torch.isnan(w)
+            assert ((g[ok] - w[ok]).abs().max() / w[ok].abs().max()).item() < TOL_REL
+        assert not torch.isnan(got[0][:2]).any()
+        _, t2, tRw, _ = want
+        tR = torch.cat([tRw, torch.as_tensor(rng.normal(size=(T, 11, 1, B)),
+                                             dtype=torch.float32)], dim=2)
+        coef = torch.as_tensor(rng.normal(size=(nC + 1, 1, B)), dtype=torch.float32)
+        want = ch.back_substitute_plain(tR.contiguous(), t2, coef)
+        got = ch._back_substitute_batched(
+            *[t.contiguous().to(cuda_device) for t in (tR, t2, coef)],
+            group=min(G, 4), threads=threads).cpu()
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        assert _nan_lanes(got, B) == lanes
+        ok = ~torch.isnan(want)
+        assert ((got[ok] - want[ok]).abs().max() / want[ok].abs().max()).item() < TOL_REL
+
+
+@pytest.mark.cuda
+def test_cuda_chain_passes_give_the_same_bits_at_every_lane_group(cuda_device):
+    """Each output entry has one expression whatever the launch shape, so
+    K6 and K8 give the same bits at every lane group size and thread count."""
+    rng = np.random.default_rng(22)
+    M, O, R = (ch._lanes_last(t).to(cuda_device)
+               for t in _chains(rng, 128, 100, 11, 14))
+    ref = ch._factor_eliminate_batched(M, O, R)
+    coef = torch.as_tensor(rng.normal(size=(15, 1, 128)), dtype=torch.float32,
+                           device=cuda_device)
+    tR = torch.cat([ref[2], ref[2][:, :, :1]], dim=2).contiguous()
+    xref = ch._back_substitute_batched(tR, ref[1], coef)
+    for G, threads in [(1, 64), (1, 256), (2, 128), (4, 256), (8, 256)]:
+        got = ch._factor_eliminate_batched(M, O, R, group=G, threads=threads)
+        assert all(torch.equal(g, r) for g, r in zip(got, ref))
+        if G <= 4:
+            x = ch._back_substitute_batched(tR, ref[1], coef, group=G,
+                                            threads=threads)
+            assert torch.equal(x, xref)
+
+
+@pytest.mark.cuda
+def test_cuda_chain_kernels_refuse_a_bad_launch_shape(cuda_device):
+    z = lambda *s: torch.zeros(*s, device=cuda_device)
+    M = z(4, 11, 11, 8) + torch.eye(11, device=cuda_device)[None, :, :, None]
+    before = ch._factor_eliminate_batched.launches
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        ch._factor_eliminate_batched(M, z(4, 11, 11, 8), z(4, 11, 12, 8),
+                                     group=3, threads=256)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        ch._factor_eliminate_batched(M, z(4, 11, 11, 8), z(4, 11, 12, 8),
+                                     group=8, threads=96)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        ch._back_substitute_batched(z(4, 11, 13, 8), z(4, 11, 11, 8),
+                                    z(13, 1, 8), group=8, threads=96)
+    assert ch._factor_eliminate_batched.launches == before

@@ -5,8 +5,8 @@
 //   K7 chain_rhs_forward  <- chainkern.py:_rhs_forward_kernel
 //   K8 chain_back_sub     <- chainkern.py:_bwd_kernel
 // Operands are batch-last, (T, a, b, B), as in Pallas: neighbouring lanes
-// are neighbouring addresses, so a warp of 32 lanes reads 32 consecutive
-// floats of every operand entry.
+// are neighbouring addresses, so the lanes of a thread block read
+// neighbouring floats of every operand entry.
 //
 // Pallas runs grid=(T,) in order and carries dcorr / rcorr / s_acc in VMEM
 // scratch from one grid step to the next.  CUDA blocks run in no order, so
@@ -16,88 +16,69 @@
 // What bounds them on an H100: neither bytes nor operations but the chain
 // itself — T dependent steps per lane, each an 11x11 Cholesky inverse (K6)
 // or two dependent 11x11 products (K7, K8), with only B lanes of
-// parallelism (128 lanes are four warps' worth).  Bytes are the larger of
-// the two roofline terms (every operand is read once and every result
-// written once) but stay far below the time the dependent steps take.
+// parallelism.  Bytes are the larger of the two roofline terms (every
+// operand is read once and every result written once) but stay far below
+// the time the dependent steps take.  So the designs keep every load and
+// every barrier they can off the chain's critical path.
 //
-// K6 design: a thread block owns 32 lanes (threadIdx.x) and kGroups warps
-// (threadIdx.y) share each lane's step by columns.  The carries need
-// 121 + 11 nC + nC^2 floats per lane (471 at nC = 14) beside the inverse,
-// more than one thread's registers hold, so they sit in shared memory as
-// [entry][lane] (conflict-free).  Per chain block: one warp factors
-// D~ = M_i - dcorr (Cholesky, the sequential part) while the others form
-// R~ = R_i - rcorr; the 11 columns of D~^-1 are solved by 11 warps; then
-// the 11 + nC columns of [O_i | R~] each get their product with D~^-1,
-// their share of s_acc and their column of the next carries.  Three
-// barriers per chain block.  nC is a run-time width (12 for S10, 14 for
-// G7).
+// K6 design (crk::chain_factor_pass): a thread block runs G lanes (a power
+// of two, lanes the fastest index of its items), so B lanes spread over
+// B / G SMs.  Per chain step three barrier steps.  P1 inverts D~: each of a
+// lane's 11 Cholesky threads factors the block itself in registers and
+// solves one column of the inverse, with the correctly rounded square roots
+// and quotients as the library's fast-path instruction sequences and no
+// branch (crk::FastOps; out of their range the warp redoes it with the
+// library routines).  Meanwhile the other warps do all that is off the
+// chain: the previous step's share of s_acc, this step's R~, the stores of
+// Dinv and t2, and the copies (cp.async) of step i + 2's M, O, R into a
+// four-step ring of shared memory.  P2 forms t2 = Dinv O, P3 the next D~
+// and tR, one thread per entry.  So the chain reads nothing from device
+// memory and waits on no store.  The ring, the carries and the scratch take
+// 10 KB a lane at nC = 14.
 //
-// K7, K8 design: one thread per lane, 32 lanes per thread block; the
-// 11-vector carry is in registers, K7's border accumulator (nB run-time
-// entries) in shared memory.
+// K7 design: one thread per lane, 32 lanes per thread block; the 11-vector
+// carry is in registers, the border accumulator (nB run-time entries) in
+// shared memory.
 //
-// Each entry point launches on the given stream, allocates nothing and
-// returns the CUDA error of the launch (0 on success).
+// K8 design (crk::back_sub_pass): G lanes per thread block.  The part of
+// each step that does not depend on the chain, a_i = tR_i coef, is computed
+// for every step at once while the lane group's t2 is staged into shared
+// memory by cp.async (53 KB a lane at T = 100; longer chains go in chunks);
+// then one thread per row of x walks the T steps, the 11 threads of a lane
+// in one warp, x_{i+1} passed by shuffles: no barrier and no device load
+// per step.
+//
+// nC is a run-time width (K6: 12 for S10, 14 for G7; K8: one more).  Each
+// entry point launches on the given stream, allocates nothing and returns
+// the CUDA error of the launch (0 on success).
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 #include "chainkern_block.cuh"
+#include "launch.cuh"
 
 namespace {
 
-constexpr int kLanes = 32;    // lanes per thread block (one warp wide)
-constexpr int kGroups = 13;   // K6: warps per thread block; 11 + nC columns
-                              // in two rounds for nC <= 15
+constexpr int kLanes = 32;    // K7: lanes per thread block (one warp wide)
+// Most threads a block may have: K6 keeps its Cholesky factor in registers
+// (up to 255 a thread with 256 threads), K8 needs few.
+constexpr int kFactorThreads = 256;
+constexpr int kBackSubThreads = 512;
 constexpr int NB = crk::NB;
 constexpr int NB2 = NB * NB;
 
-__global__ void __launch_bounds__(kLanes * kGroups)
+// K6: thread block b runs the chains of lanes b*G .. b*G + G - 1.  G is a
+// template constant, so shared-memory offsets are immediates.
+template <int G>
+__global__ void __launch_bounds__(kFactorThreads, 1)
 chain_factor_kernel(const float* __restrict__ M, const float* __restrict__ O,
                     const float* __restrict__ R, float* __restrict__ Dinv,
                     float* __restrict__ t2, float* __restrict__ tR,
                     float* __restrict__ S, int T, int nC, long B) {
   extern __shared__ float sm[];
-  const int lane = threadIdx.x, g = threadIdx.y;
-  const long b = (long)blockIdx.x * kLanes + lane;
-  const bool live = b < B;
-  // per-lane arrays, entry e of lane l at [e * kLanes + l]
-  float* Lc = sm + lane;
-  float* Dv = Lc + NB2 * kLanes;
-  float* dcorr = Dv + NB2 * kLanes;
-  float* Rt = dcorr + NB2 * kLanes;
-  float* rcorr = Rt + NB * nC * kLanes;
-  float* s_acc = rcorr + NB * nC * kLanes;
-  for (int e = g; e < NB2; e += kGroups) dcorr[e * kLanes] = 0.0f;
-  for (int e = g; e < NB * nC; e += kGroups) rcorr[e * kLanes] = 0.0f;
-  for (int e = g; e < nC * nC; e += kGroups) s_acc[e * kLanes] = 0.0f;
-  __syncthreads();
-  for (int i = 0; i < T; ++i) {
-    const float* Mi = M + (long)i * NB2 * B + b;
-    const float* Oi = O + (long)i * NB2 * B + b;
-    const float* Ri = R + (long)i * NB * nC * B + b;
-    if (live) {
-      if (g == kGroups - 1) crk::chain_chol<float>(Mi, B, dcorr, kLanes, Lc, kLanes);
-      for (int q = g; q < nC; q += kGroups)
-        crk::chain_rt_column<float>(Ri, B, rcorr, kLanes, Rt, kLanes, nC, q);
-    }
-    __syncthreads();
-    if (live) {
-      for (int c = g; c < NB; c += kGroups)
-        crk::chain_inverse_column<float>(Lc, kLanes, c, Dv, kLanes,
-                                         Dinv + (long)i * NB2 * B + b, B);
-    }
-    __syncthreads();
-    if (live) {
-      for (int q = g; q < NB + nC; q += kGroups)
-        crk::chain_factor_column<float>(
-            Dv, kLanes, Oi, B, Rt, kLanes, t2 + (long)i * NB2 * B + b,
-            tR + (long)i * NB * nC * B + b, B, dcorr, kLanes, rcorr, kLanes,
-            s_acc, kLanes, nC, q);
-    }
-    __syncthreads();
-  }
-  if (live) {
-    for (int e = g; e < nC * nC; e += kGroups) S[(long)e * B + b] = s_acc[e * kLanes];
-  }
+  crk::chain_factor_pass<float>(crk::BlockChainTeam{}, M, O, R, Dinv, t2, tR,
+                                S, T, nC, B, (long)blockIdx.x * G, G, sm);
 }
 
 __global__ void __launch_bounds__(kLanes)
@@ -123,60 +104,100 @@ chain_rhs_forward_kernel(const float* __restrict__ Dinv,
   for (int p = 0; p < nB; ++p) sb[(long)p * B + b] = acc[p * kLanes];
 }
 
-__global__ void __launch_bounds__(kLanes)
+// K8: thread block b back-substitutes lanes b*G .. b*G + G - 1, Tc steps a
+// chunk.
+template <int G>
+__global__ void __launch_bounds__(kBackSubThreads, 1)
 chain_back_sub_kernel(const float* __restrict__ tR, const float* __restrict__ t2,
                       const float* __restrict__ coef, float* __restrict__ x,
-                      int T, int nC, long B) {
-  const long b = (long)blockIdx.x * kLanes + threadIdx.x;
-  if (b >= B) return;
-  float xn[NB];
-#pragma unroll
-  for (int k = 0; k < NB; ++k) xn[k] = 0.0f;
-  for (int i = T - 1; i >= 0; --i) {
-    crk::chain_back_sub_block<float>(
-        tR + (long)i * NB * nC * B + b, t2 + (long)i * NB2 * B + b, coef + b, B,
-        x + (long)i * NB * B + b, B, xn, nC);
-  }
+                      int T, int nC, long B, int Tc) {
+  extern __shared__ float sm[];
+  crk::back_sub_pass<float>(crk::BlockChainTeam{}, tR, t2, coef, x, T, nC, B,
+                            (long)blockIdx.x * G, G, Tc, sm);
 }
 
-inline int lane_blocks(long B) { return (int)((B + kLanes - 1) / kLanes); }
+inline bool lane_group_ok(int G) { return G >= 1 && G <= 8 && !(G & (G - 1)); }
+
+// K6 and K8 may ask for any dynamic shared memory up to what a block can
+// have: the limit is raised to that once per device and lane group size.
+long chain_factor_smem[4][crk::kMaxDevices] = {};
+long back_sub_smem[4][crk::kMaxDevices] = {};
+
+// The entry (0-3) of lane group size G (1, 2, 4, 8) in the tables above,
+// and a launch of the kernel instance of G.
+inline int group_index(int G) { return G == 1 ? 0 : G == 2 ? 1 : G == 4 ? 2 : 3; }
+
+template <typename Launch>
+cudaError_t launch_group(int G, Launch&& launch) {
+  switch (G) {
+    case 1: return launch(std::integral_constant<int, 1>{});
+    case 2: return launch(std::integral_constant<int, 2>{});
+    case 4: return launch(std::integral_constant<int, 4>{});
+    default: return launch(std::integral_constant<int, 8>{});
+  }
+}
 
 }  // namespace
 
 extern "C" {
 
-// Shared memory K6 needs for a border width nC, in bytes.
-long chain_factor_smem_bytes(int nC) {
-  return (long)(3 * NB2 + 2 * NB * nC + nC * nC) * kLanes * sizeof(float);
-}
-
+// K6 over B lanes, G lanes (1, 2, 4 or 8) per thread block of `threads`
+// threads (a multiple of 32, at most 256, more than the warps of the G
+// lanes' Cholesky threads: 16 G rounded up to a warp).
 int chain_factor(const float* M, const float* O, const float* R, float* Dinv,
-                 float* t2, float* tR, float* S, int T, int nC, long B,
-                 void* stream) {
-  const long smem = chain_factor_smem_bytes(nC);
-  cudaError_t err = cudaFuncSetAttribute(
-      chain_factor_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  chain_factor_kernel<<<lane_blocks(B), dim3(kLanes, kGroups), smem,
-                        (cudaStream_t)stream>>>(M, O, R, Dinv, t2, tR, S, T, nC, B);
-  return (int)cudaGetLastError();
+                 float* t2, float* tR, float* S, int T, int nC, long B, int G,
+                 int threads, void* stream) {
+  const long smem = G * crk::chain_factor_floats(nC) * (long)sizeof(float);
+  if (!lane_group_ok(G) || threads % 32 || threads > kFactorThreads ||
+      threads <= crk::chain_threads(G) || T < 1 || nC < 1 || B < 1 ||
+      smem > crk::kMaxSmemBytes)
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_group(G, [&](auto g) {
+    constexpr int kG = decltype(g)::value;
+    cudaError_t err = crk::allow_smem(chain_factor_kernel<kG>,
+                                      crk::kMaxSmemBytes,
+                                      chain_factor_smem[group_index(kG)]);
+    if (err != cudaSuccess) return err;
+    chain_factor_kernel<kG><<<(int)((B + kG - 1) / kG), threads, smem,
+                              (cudaStream_t)stream>>>(M, O, R, Dinv, t2, tR, S,
+                                                      T, nC, B);
+    return cudaGetLastError();
+  });
 }
 
 int chain_rhs_forward(const float* Dinv, const float* O, const float* tRw,
                       const float* r, float* tr, float* sb, int T, int nB,
                       long B, void* stream) {
-  chain_rhs_forward_kernel<<<lane_blocks(B), kLanes,
+  chain_rhs_forward_kernel<<<(int)((B + kLanes - 1) / kLanes), kLanes,
                              (size_t)nB * kLanes * sizeof(float),
                              (cudaStream_t)stream>>>(Dinv, O, tRw, r, tr, sb, T,
                                                      nB, B);
   return (int)cudaGetLastError();
 }
 
+// K8 over B lanes, G lanes (1, 2, 4 or 8) per thread block of `threads`
+// threads (a multiple of 32, at most 512, at least 16 G rounded up to a
+// warp); as many steps a chunk as shared memory holds.
 int chain_back_sub(const float* tR, const float* t2, const float* coef, float* x,
-                   int T, int nC, long B, void* stream) {
-  chain_back_sub_kernel<<<lane_blocks(B), kLanes, 0, (cudaStream_t)stream>>>(
-      tR, t2, coef, x, T, nC, B);
-  return (int)cudaGetLastError();
+                   int T, int nC, long B, int G, int threads, void* stream) {
+  if (!lane_group_ok(G) || threads % 32 || threads > kBackSubThreads ||
+      threads < crk::chain_threads(G) || T < 1 || nC < 1 || B < 1)
+    return (int)cudaErrorInvalidValue;
+  const long fit = (crk::kMaxSmemBytes / (long)sizeof(float) / G - NB) /
+                   (NB2 + NB);
+  const int Tc = (int)(T < fit ? T : fit);
+  const long smem = G * crk::back_sub_floats(Tc) * (long)sizeof(float);
+  return (int)launch_group(G, [&](auto g) {
+    constexpr int kG = decltype(g)::value;
+    cudaError_t err = crk::allow_smem(chain_back_sub_kernel<kG>,
+                                      crk::kMaxSmemBytes,
+                                      back_sub_smem[group_index(kG)]);
+    if (err != cudaSuccess) return err;
+    chain_back_sub_kernel<kG><<<(int)((B + kG - 1) / kG), threads, smem,
+                                (cudaStream_t)stream>>>(tR, t2, coef, x, T, nC,
+                                                        B, Tc);
+    return cudaGetLastError();
+  });
 }
 
 const char* kernel_error_string(int code) {

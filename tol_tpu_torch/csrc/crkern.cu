@@ -68,9 +68,8 @@
 // returns cudaGetLastError() (0 on success).
 #include <cuda_runtime.h>
 
-#include <mutex>
-
 #include "crkern_block.cuh"
+#include "launch.cuh"
 
 namespace {
 
@@ -118,24 +117,9 @@ bwd_pass_kernel(const crk::LevelPtrs<const float*> lv,
                        X + n * n_pad * crk::NB * m, B, n, n_pad, m, smem);
 }
 
-// Raise a kernel's dynamic shared-memory limit (48 KB by default) to
-// `bytes`, once per device and size: `allowed` keeps the largest limit set
-// so far on each device.  The attribute call fails for more than the card
-// has.
-constexpr int kMaxDevices = 64;
-template <typename K>
-cudaError_t allow_smem(K kernel, long bytes, long (&allowed)[kMaxDevices]) {
-  static std::mutex mu;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  std::lock_guard<std::mutex> lock(mu);
-  if (dev < kMaxDevices && bytes <= allowed[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)bytes);
-  if (err == cudaSuccess && dev < kMaxDevices) allowed[dev] = bytes;
-  return err;
-}
+using crk::allow_smem;
+using crk::kMaxDevices;
+
 long factor_fwd_pass_smem[kMaxDevices] = {};
 long fwd_pass_smem[kMaxDevices] = {};
 long bwd_pass_smem[kMaxDevices] = {};

@@ -38,9 +38,9 @@ _SIGNATURES = {
         "crp_root": [_P] * 2 + [_L, _P],
     },
     "chainkern": {
-        "chain_factor": [_P] * 7 + [_I, _I, _L, _P],
+        "chain_factor": [_P] * 7 + [_I, _I, _L, _I, _I, _P],
         "chain_rhs_forward": [_P] * 6 + [_I, _I, _L, _P],
-        "chain_back_sub": [_P] * 4 + [_I, _I, _L, _P],
+        "chain_back_sub": [_P] * 4 + [_I, _I, _L, _I, _I, _P],
     },
 }
 

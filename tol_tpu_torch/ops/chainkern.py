@@ -35,6 +35,10 @@ from tol_tpu_torch.ops import _build
 from tol_tpu_torch.ops.crkern import _mm, _mm_tn, _spd_inverse_slab
 
 _NB = 11  # the kernels are built for the 11x11 node blocks
+# Launch shapes of K6 and K8: lanes per thread block and threads per block
+# (PERF.md, the sweeps of the fifth slice).
+K6_GROUP, K6_THREADS = 1, 256
+K8_GROUP, K8_THREADS = 1, 256
 
 # ---------------------------------------------------------------------------
 # plain twins of the kernels (slab algebra over the trailing lane axis,
@@ -117,13 +121,14 @@ def _launch(name, wrapper, ins, outs, *dims):
     code = getattr(lib, name)(
         *[t.data_ptr() for t in ins + outs], *dims,
         torch.cuda.current_stream(ins[0].device).cuda_stream)
+    _build.check(lib, code, name)     # a refused launch never ran
     wrapper.launches += 1
-    _build.check(lib, code, name)
 
 
-def _factor_eliminate_batched(M, O, R):
+def _factor_eliminate_batched(M, O, R, group=K6_GROUP, threads=K6_THREADS):
     """K6 (replaces chainkern.py:_factor_kernel): see
-    :func:`factor_eliminate_plain` for shapes."""
+    :func:`factor_eliminate_plain` for shapes.  ``group`` lanes (1, 2, 4 or
+    8) share a thread block of ``threads`` threads."""
     if M.device.type == "cpu":
         return factor_eliminate_plain(M, O, R)
     T, B, nC = M.shape[0], M.shape[3], R.shape[2]
@@ -131,7 +136,8 @@ def _factor_eliminate_batched(M, O, R):
                             (R, (T, _NB, nC, B))])
     outs = [torch.empty_like(M), torch.empty_like(M), torch.empty_like(R),
             torch.empty(nC, nC, B, dtype=M.dtype, device=M.device)]
-    _launch("chain_factor", _factor_eliminate_batched, [M, O, R], outs, T, nC, B)
+    _launch("chain_factor", _factor_eliminate_batched, [M, O, R], outs, T, nC, B,
+            group, threads)
     return tuple(outs)
 
 
@@ -150,9 +156,10 @@ def _rhs_forward_batched(Dinv, O, tRw, r):
     return tuple(outs)
 
 
-def _back_substitute_batched(tR, t2, coef):
+def _back_substitute_batched(tR, t2, coef, group=K8_GROUP, threads=K8_THREADS):
     """K8 (replaces chainkern.py:_bwd_kernel): see
-    :func:`back_substitute_plain` for shapes."""
+    :func:`back_substitute_plain` for shapes.  ``group`` lanes (1, 2, 4 or
+    8) share a thread block of ``threads`` threads."""
     if tR.device.type == "cpu":
         return back_substitute_plain(tR, t2, coef)
     T, _, nC, B = tR.shape
@@ -160,7 +167,7 @@ def _back_substitute_batched(tR, t2, coef):
                               (coef, (nC, 1, B))])
     x = torch.empty(T, _NB, B, dtype=tR.dtype, device=tR.device)
     _launch("chain_back_sub", _back_substitute_batched, [tR, t2, coef], [x],
-            T, nC, B)
+            T, nC, B, group, threads)
     return x
 
 

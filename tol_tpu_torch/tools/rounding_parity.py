@@ -1,4 +1,4 @@
-"""Do two checkouts' cyclic-reduction kernels compute the same bits?
+"""Do two checkouts' chain kernels compute the same bits?
 
     python3 -m tol_tpu_torch.tools.rounding_parity OTHER_TREE [--seed 0]
 
@@ -7,12 +7,16 @@ earlier commit unpacked with ``git archive <commit> | tar -x -C build/other``
 (``build/`` is ignored by git).  Each tree's ``crp_factor_solve`` (here K1,
 then K3) and ``crp_solve`` (here K2, then K3; in a tree whose K2 runs one
 launch per level, those and a K4 launch in either solve) run on the same
-seeded chains at the S10 solve's shapes: 128 lanes of 100 blocks padded to 128 (7 CR levels), 12
-border columns and one solve column.  Each tree runs twice, in a process of
-its own: built with nvcc's default, which may fuse a product and a sum into
-one FMA, and built with ``-fmad=false``, which rounds every product and
-every sum.  For each pair of runs the script prints, per output, how many
-entries differ in their bits and by how much.
+seeded chains at the S10 solve's shapes: 128 lanes of 100 blocks padded to
+128 (7 CR levels), 12 border columns and one solve column.  Then each
+tree's sequential-chain kernels run on seeded chains of the same length:
+K6 (``chain_factor``: Dinv, t2, tR, S) at S10's and G7's border widths 12
+and 14, and K8 (``chain_back_sub``: x) at 13 and 15, on operands of their
+own.  Each tree runs twice, in a process of its own: built with nvcc's
+default, which may fuse a product and a sum into one FMA, and built with
+``-fmad=false``, which rounds every product and every sum.  For each pair
+of runs the script prints, per output, how many entries differ in their
+bits and by how much.
 
 Where both trees' kernels evaluate the same expressions in the same order,
 their ``-fmad=false`` builds agree bit for bit, and any difference between
@@ -48,12 +52,31 @@ def _inputs(seed):
     return [np.ascontiguousarray(a, dtype=np.float32) for a in (M, O, F, f)]
 
 
+def _chain_inputs(seed, nC):
+    """K6's operands, batch-last: B SPD chains of T blocks with nC border
+    columns; K8's: tR (nC + 1 columns), a contracting t2 and coef."""
+    rng = np.random.default_rng(seed + nC)
+    A = 0.3 * rng.normal(size=(B, T, NB, NB))
+    M = A @ np.swapaxes(A, -1, -2) + 4.0 * np.eye(NB)
+    O = 0.1 * rng.normal(size=(B, T, NB, NB))
+    O[:, -1] = 0.0
+    R = rng.normal(size=(B, T, NB, nC))
+    tR = rng.normal(size=(T, NB, nC + 1, B))
+    t2 = 0.1 * rng.normal(size=(T, NB, NB, B))
+    coef = rng.normal(size=(nC + 1, 1, B))
+    last = lambda x: np.moveaxis(x, 0, -1)
+    return [np.ascontiguousarray(a, dtype=np.float32)
+            for a in (last(M), last(O), last(R), tR, t2, coef)]
+
+
 def _worker(tree, fmad, seed, save):
-    """Solve in ``tree``'s port and save the factor and both solutions."""
+    """Solve in ``tree``'s port and save the factor and both solutions, and
+    the chain kernels' outputs."""
     sys.path.insert(0, tree)
     import torch
 
     from tol_tpu_torch.ops import _build
+    from tol_tpu_torch.ops import chainkern as ch
     from tol_tpu_torch.ops import crkern as ck
     if not os.path.abspath(ck.__file__).startswith(tree + os.sep):
         raise RuntimeError(f"imported {ck.__file__}, not the port of {tree}")
@@ -66,6 +89,14 @@ def _worker(tree, fmad, seed, save):
     torch.cuda.synchronize()
     out = {f"minv_level_{l}": lv[0] for l, lv in enumerate(levels)}
     out.update(root_inv=root_inv, X=X, x=x)
+    for nC in (12, 14):
+        M, O, R, tR, t2, coef = (torch.as_tensor(a, device="cuda")
+                                 for a in _chain_inputs(seed, nC))
+        for name, t in zip(("Dinv", "t2", "tR", "S"),
+                           ch._factor_eliminate_batched(M, O, R)):
+            out[f"chain_{name}_{nC}"] = t
+        out[f"chain_x_{nC + 1}"] = ch._back_substitute_batched(tR, t2, coef)
+    torch.cuda.synchronize()
     np.savez(save, **{k: v.cpu().numpy() for k, v in out.items()})
 
 
