@@ -9,34 +9,35 @@ Phases, each of which must pass (any failure exits non-zero and prints no
 1. build   — compile every kernel source under ``tol_tpu_torch/csrc`` with
              nvcc, one compiler per source, all at once, beside
              ``tol_tpu_torch/tools/chain_clock.cu`` (timed as set-up).
-   clock   — ``chain_clock``: clock64 traces of a chain step of K6 and K8
+   clock   — ``chain_clock``: clock64 traces of a chain step of K6-K8
              (the second slice's kernels and the shipped ones), the latency
              of a square root, quotient and FMA, and K6's fast-path square
              root and quotient against the library's on 2^26 operands each
              (any differing bits fail the phase).
-2. kernels — hold each of the eight kernels against its plain PyTorch twin
+2. kernels — hold each of the seven kernels against its plain PyTorch twin
              on the card at the solves' shapes: the cyclic-reduction
-             kernels K1-K5 at 11x11 blocks, B=128 lanes, T=100 blocks
+             kernels K1-K3, K5 at 11x11 blocks, B=128 lanes, T=100 blocks
              padded to 128 (CR levels h = 64..1), rhs widths m = 12, 14
-             and 1 (K1, K2 and K3 take the level-0 operands and run the 7
-             levels and the root step in one launch; K5 runs one launch per
-             level, K4 once for crp_factor's root);
+             and 1 (each takes the level-0 operands and runs the 7 levels
+             and the root step in one launch; K5 is K1 with no rhs);
              the sequential-chain kernels K6-K8 at T=100 blocks, B=128
              lanes, border widths 12 and 14.  Each case includes a lane
              with an indefinite pivot that must come out NaN in that lane
              only.  Kernel, twin and a library yardstick are timed with
              CUDA events, each kernel also by its own device time under
-             torch.profiler, and each kernel's bound is reckoned; for K6-K8
-             also the floor that the T dependent steps set.
-   sweep   — K6 and K8 at every lane group size and thread count of
-             SWEEP: device time; every shape must give the shipped shape's
-             bits.
+             torch.profiler, both warm (the operands in the 50 MB L2 from
+             the run before) and cold (a 128 MiB write between runs), and
+             each kernel's bound is reckoned; for K6-K8 also the floor that
+             the T dependent steps set.  Beside K7, the device time of the
+             batch-last copies of O and r that its public wrapper makes.
+   sweep   — K6-K8 at every lane group size and thread count of SWEEP:
+             device time; every shape must give the shipped shape's bits.
 3. chains  — the same 128 chains of T=100 blocks solved by
              ``crp_factor`` + ``crp_solve``, by ``crp_factor_solve``, by
              ``chain_eliminate`` + ``chain_rhs_forward`` +
              ``chain_back_sub`` and by a dense Cholesky yardstick (which
              the port never calls); all must agree.  This is the path that
-             launches K4 and K5.
+             launches K5, once for ``crp_factor``.
 4. solves  — three float32 ts=100 solves through ``make_grouped_solver``
              (two-body dive + endgame in 128-lane groups, then 128-lane
              drain chunks) with bench.py's constants:
@@ -53,7 +54,7 @@ Phases, each of which must pass (any failure exits non-zero and prints no
                               gap is reported beside the crp dive's, not
                               gated.
              Every kernel that belongs to a path must be launched on it,
-             and K4 and K5 (crp_factor) on none of them.
+             and K5 (crp_factor) on none of them.
 5. profile — one dive (crp and sequential) and one endgame iteration of 128
              lanes under torch.profiler: host wall, device busy time and
              idle share, the hand-written kernels' share, kernel launches.
@@ -97,12 +98,13 @@ CHAIN_SOURCE = "tol_tpu_torch/csrc/chainkern.cu"
 # kernel -> (source, the TPU kernel it replaces)
 KERNELS = {
     "crp_factor_fwd_pass": (
-        CR_SOURCE, "tol_tpu/ops/crkern.py:168 _factor_fwd_kernel"),
+        CR_SOURCE, "tol_tpu/ops/crkern.py:168 _factor_fwd_kernel + "
+        "tol_tpu/ops/crkern.py:213 _root_kernel"),
     "crp_fwd_pass": (CR_SOURCE, "tol_tpu/ops/crkern.py:193 _fwd_kernel + "
                      "tol_tpu/ops/crkern.py:217 _root_solve_kernel"),
     "crp_bwd_pass": (CR_SOURCE, "tol_tpu/ops/crkern.py:204 _bwd_kernel"),
-    "crp_root": (CR_SOURCE, "tol_tpu/ops/crkern.py:213 _root_kernel"),
-    "crp_factor_level": (CR_SOURCE, "tol_tpu/ops/crkern.py:144 _factor_kernel"),
+    "crp_factor_pass": (CR_SOURCE, "tol_tpu/ops/crkern.py:144 _factor_kernel + "
+                        "tol_tpu/ops/crkern.py:213 _root_kernel"),
     "chain_factor": (CHAIN_SOURCE, "tol_tpu/ops/chainkern.py:133 _factor_kernel"),
     "chain_rhs_forward": (
         CHAIN_SOURCE, "tol_tpu/ops/chainkern.py:170 _rhs_forward_kernel"),
@@ -110,13 +112,12 @@ KERNELS = {
 }
 # the crp kernels of a solve path, and those of crp_factor alone
 CR_PASS_KERNELS = ("crp_factor_fwd_pass", "crp_fwd_pass", "crp_bwd_pass")
-CR_FACTOR_ONLY = ("crp_root", "crp_factor_level")
+CR_FACTOR_ONLY = ("crp_factor_pass",)
 # kernel -> its __global__ function, as ptxas and the profiler name it
 SYMBOLS = {"crp_factor_fwd_pass": "factor_fwd_pass_kernel",
            "crp_fwd_pass": "fwd_pass_kernel",
            "crp_bwd_pass": "bwd_pass_kernel",
-           "crp_root": "root_kernel",
-           "crp_factor_level": "factor_level_kernel",
+           "crp_factor_pass": "factor_pass_kernel",
            "chain_factor": "chain_factor_kernel",
            "chain_rhs_forward": "chain_rhs_forward_kernel",
            "chain_back_sub": "chain_back_sub_kernel"}
@@ -141,8 +142,11 @@ CHAIN_OPS = {"chain_factor": dict(sqrt=11, quotient=33, ffma=209),
 # Launch shapes of the sweep: (lanes per thread block, threads per block).
 SWEEP = {"chain_factor": [(G, th) for G in (1, 2, 4, 8)
                           for th in (64, 128, 256) if th > 16 * G],
+         "chain_rhs_forward": [(G, th) for G in (1, 2, 4, 8)
+                               for th in (128, 256, 512) if th > 16 * G],
          "chain_back_sub": [(G, th) for G in (1, 2, 4)
                             for th in (64, 128, 256)]}
+L2_FLUSH_BYTES = 128 << 20   # written between the cold runs (L2: 50 MB)
 
 
 class SmokeFailure(Exception):
@@ -203,19 +207,24 @@ def _ptxas_by_kernel(reports):
     return out
 
 
-def _device_ms(torch, fn, symbol, reps):
-    """Mean device time of the kernel ``symbol`` per ``fn()`` under
-    torch.profiler (None if the profiler saw none)."""
+def _device_ms(torch, fn, symbol, reps, flush=None):
+    """Mean device time of the kernel ``symbol`` (of every kernel, for
+    None) per ``fn()`` under torch.profiler (None if the profiler saw none).
+    With ``flush`` (a buffer larger than the L2), the buffer is written
+    before each run, so that ``fn`` finds its operands in device memory."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
+            if flush is not None:
+                flush.zero_()
             fn()
         torch.cuda.synchronize()
     us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and symbol in e.key)
+             if e.device_type == DeviceType.CUDA
+             and (symbol is None or symbol in e.key))
     return us / 1e3 / reps if us > 0 else None
 
 
@@ -233,15 +242,21 @@ def _time_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def _spd_slab(torch, gen, L, dev):
-    """(11, 11, L) slab of diagonally dominant SPD blocks."""
-    A = torch.randn(L, NB, NB, generator=gen, device=dev) * 0.3
-    M = A @ A.transpose(1, 2) + 4.0 * torch.eye(NB, device=dev)
-    return M.permute(1, 2, 0).contiguous()
-
-
-def _rand_slab(torch, gen, w, L, dev, scale=0.3):
-    return (torch.randn(NB, w, L, generator=gen, device=dev) * scale).contiguous()
+def _time_ms_cold(torch, fn, reps, flush):
+    """Mean ms of ``fn()`` by CUDA events around each run alone, with the
+    L2 flushed (``flush`` written) before each."""
+    fn()
+    total = 0.0
+    for _ in range(reps):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
 
 
 def _chains(torch, gen, T, m, dev):
@@ -305,11 +320,6 @@ def _nan_pass_ok(torch, outs, col, must):
     return True
 
 
-def _poison_pivot(torch, args, col):
-    """K4, K5 invert their first operand: an indefinite block there."""
-    args[0][:, :, col] = -torch.eye(NB, device=args[0].device)
-
-
 def _poison_fwd_nan(torch, args, col):
     """K2: lane ``col``'s factor is NaN from level 1 on and its root inverse
     NaN (what K1 hands on from an indefinite pivot at level 1)."""
@@ -319,7 +329,7 @@ def _poison_fwd_nan(torch, args, col):
 
 
 def _poison_pass_pivot(torch, args, col):
-    """K1: lane ``col``'s first level-0 pivot (block 1) is indefinite."""
+    """K1, K5: lane ``col``'s first level-0 pivot (block 1) is indefinite."""
     args[0][col, 1] = -torch.eye(NB, device=args[0].device)
 
 
@@ -339,19 +349,15 @@ def _poison_chain_nan(torch, args, col):
 
 
 def _cr_cases(torch, ck, gen, dev):
-    """K1-K5.  Per kernel: the inputs of one CR pass over the 7 levels
-    (timed: one launch for K1, K2 and K3, one per level for K5; K4 one
-    launch), the inputs of the kernel's other solve shapes (``extra``,
-    checked only), the kernel call, the twin call, and the bytes / FLOPs the
-    timed pass must move / do."""
+    """K1-K3, K5.  Per kernel: the inputs of one CR pass over the 7 levels
+    (timed: one launch), the inputs of the kernel's other solve shapes
+    (``extra``, checked only), the kernel call, the twin call, and the
+    bytes / FLOPs the timed pass must move / do."""
     fl = 4  # bytes per float32
     n3, n2 = NB ** 3, NB ** 2
     tri = NB * (NB + 1) // 2    # the pivot inverse reads only the lower triangle
     cols = sum(h * B_LANES for h in LEVELS)
     cases = {}
-
-    def per_level(make):
-        return [make(h * B_LANES) for h in LEVELS]
 
     def pass_inputs(m):
         """Level 0 of the K1 pass: B_LANES chains of TS blocks padded to
@@ -431,22 +437,22 @@ def _cr_cases(torch, ck, gen, dev):
                               + n_pad * NB * m),
         flops=cols * 6 * n2 * m,
         bytes_per_level_sum=cols * fl * (3 * n2 + 3 * NB * m + NB * m))
-    # K4: invert crp_factor's B_LANES root blocks.  Least bytes: each
-    # block's lower triangle read, its inverse written.
-    cases["crp_root"] = dict(
-        inputs=[[_spd_slab(torch, gen, B_LANES, dev)]], kernel=ck.crp_root,
-        plain=ck.root_plain, poison=_poison_pivot,
-        bytes=B_LANES * fl * (tri + n2), flops=B_LANES * root_flops)
-    # K5: factor one level, no rhs.
-    k5 = per_level(lambda L: [_spd_slab(torch, gen, L, dev),
-                              _spd_slab(torch, gen, L, dev),
-                              _rand_slab(torch, gen, NB, L, dev),
-                              _rand_slab(torch, gen, NB, L, dev)])
-    cases["crp_factor_level"] = dict(
-        inputs=k5, kernel=ck.crp_factor_level, plain=ck.factor_level_plain,
-        poison=_poison_pivot,
-        bytes=cols * fl * ((tri + 3 * n2) + 4 * n2),
-        flops=cols * factor_flops)
+    # K5: crp_factor's pass, K1 with no rhs: the 7 levels' factor, then
+    # the root's inverse.  Least bytes: level 0 read once (each odd pivot's
+    # lower triangle, even blocks whole, O), every level's Minv, OL, OR and
+    # the root's inverse written once.
+    def factor_inputs():
+        return pass_inputs(1)[:2]
+
+    cases["crp_factor_pass"] = dict(
+        inputs=[factor_inputs()], kernel=ck.crp_factor_pass,
+        plain=lambda M, O: ck.factor_pass_plain(ck._to_slab(M), ck._to_slab(O),
+                                                B_LANES),
+        flat=lambda out: _flat_pass(out[0], [], out[1]),
+        poison=_poison_pass_pivot, nan_must=(-1,),
+        bytes=B_LANES * fl * (n_pad // 2 * (tri + n2) + n_pad * n2
+                              + blocks * 3 * n2 + n2),
+        flops=cols * factor_flops + B_LANES * root_flops)
     return cases
 
 
@@ -503,6 +509,7 @@ def check_kernels(torch, ck, ch, dev, latency):
     sm_hz = float(_nvidia_smi("clocks.max.sm").split()[0]) * 1e6
     cases = _cr_cases(torch, ck, gen, dev)
     cases.update(_chain_cases(torch, ch, gen, dev))
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device=dev)
     records = {}
     for name, case in cases.items():
         abs_err = rel_err = 0.0
@@ -544,6 +551,9 @@ def check_kernels(torch, ck, ch, dev, latency):
 
         ms = _time_ms(torch, run_kernel, 50)
         device_ms = _device_ms(torch, run_kernel, SYMBOLS[name], 20)
+        ms_cold = _time_ms_cold(torch, run_kernel, 20, flush)
+        device_ms_cold = _device_ms(torch, run_kernel, SYMBOLS[name], 20,
+                                    flush=flush)
         plain_ms = _time_ms(torch, run_plain, 3)
         t_bytes = case["bytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = case["flops"] / FP32_FLOP_PER_S * 1e3
@@ -553,7 +563,8 @@ def check_kernels(torch, ck, ch, dev, latency):
             launches=0, max_abs_err=abs_err, max_rel_err=rel_err,
             ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
-            library_ms=None, device_ms=device_ms,
+            library_ms=None, device_ms=device_ms, ms_cold_l2=ms_cold,
+            device_ms_cold_l2=device_ms_cold,
             launches_per_pass=len(case["inputs"]),
             bytes=case["bytes"], flops=case["flops"])
         if "bytes_per_level_sum" in case:
@@ -572,36 +583,52 @@ def check_kernels(torch, ck, ch, dev, latency):
             records[name]["ms_border_14"] = _time_ms(
                 torch, lambda: [case["kernel"](*a) for a in extra], 50)
 
-    # Library yardstick, never called by the port: K4's inverse against
-    # torch.linalg.inv on the same blocks.  No single PyTorch call computes
-    # what the other kernels compute.
-    Mr = cases["crp_root"]["inputs"][0][0].permute(2, 0, 1).contiguous()
-    records["crp_root"]["library_ms"] = _time_ms(
-        torch, lambda: torch.linalg.inv(Mr), 50)
+    # No single PyTorch call computes what a kernel computes (a whole CR
+    # pass, a sequential chain with its carries), so library_ms stays None.
+    _, O, _, r = cases["chain_rhs_forward"]["inputs"][0]
+    records["chain_rhs_forward"]["lanes_last_copies_device_ms"] = (
+        k7_copies_device_ms(torch, ch, O, r))
     return records
 
 
+def k7_copies_device_ms(torch, ch, O, r):
+    """Device ms of the batch-last copies of O (T, 11, 11, B) and r
+    (T, 11, 1, B) that chain_rhs_forward makes of the solver's batch-first
+    operands on every call (Dinv and tRw come batch-last from K6: no
+    copy)."""
+    O_first = ch._lanes_first(O).contiguous()
+    r_first = r[:, :, 0].permute(2, 0, 1).contiguous()
+    return dict(
+        O=_device_ms(torch, lambda: ch._lanes_last(O_first), None, 20),
+        r=_device_ms(torch, lambda: ch._lanes_last(r_first[..., None]), None,
+                     20))
+
+
 def sweep_chain_kernels(torch, ch, dev):
-    """K6 and K8 at every launch shape of SWEEP on the kernels phase's
-    shapes (T = TS, B_LANES lanes, border width 12, 13): device ms under
-    torch.profiler (20 runs), ms by CUDA events, and whether the outputs
-    have the bits of the shipped shape's."""
+    """K6-K8 at every launch shape of SWEEP on the kernels phase's shapes
+    (T = TS, B_LANES lanes, border width 12, 13 for K8) and K7 also at
+    border width 14: device ms under torch.profiler (20 runs), ms by CUDA
+    events, and whether the outputs have the bits of the shipped shape's."""
     gen = torch.Generator(device=dev).manual_seed(3)
     cases = _chain_cases(torch, ch, gen, dev)
     out = {}
     for name, grid in SWEEP.items():
         kernel, args = cases[name]["kernel"], cases[name]["inputs"][0]
         ref = _tuple(kernel(*args))
+        others = cases[name]["extra"] if name == "chain_rhs_forward" else []
+        refs = [_tuple(kernel(*a)) for a in others]
         rows = []
         for G, th in grid:
             run = lambda: kernel(*args, group=G, threads=th)
             got = _tuple(run())
+            same = all(bool(torch.equal(g, r)) for g, r in zip(got, ref))
+            for a, want in zip(others, refs):
+                same &= all(bool(torch.equal(g, r)) for g, r in zip(
+                    _tuple(kernel(*a, group=G, threads=th)), want))
             rows.append(dict(
                 group=G, threads=th,
                 device_ms=_device_ms(torch, run, SYMBOLS[name], 20),
-                ms=_time_ms(torch, run, 20),
-                same_bits=all(bool(torch.equal(g, r))
-                              for g, r in zip(got, ref))))
+                ms=_time_ms(torch, run, 20), same_bits=same))
         _require(all(r["same_bits"] for r in rows),
                  f"{name}: the bits depend on the launch shape")
         out[name] = rows
@@ -614,7 +641,8 @@ def sweep_chain_kernels(torch, ch, dev):
 
 def check_chains(torch, ck, ch, dev, m=12):
     """B_LANES chains of T = TS blocks with m + 1 rhs columns ([F | r]),
-    solved four ways; every one must agree with the dense Cholesky solve.
+    solved four ways; every one must agree with the dense Cholesky solve,
+    and crp_factor + crp_solve must launch K5, K2 and K3 once each.
     Returns (record, launch counts of one solve by each backend)."""
     T = TS
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -653,18 +681,24 @@ def check_chains(torch, ck, ch, dev, m=12):
             [ch.chain_back_sub(tFr, t2, eye[j].expand(B_LANES, m + 1))
              for j in range(m + 1)], dim=3)
 
-    _reset_launch_counts(ck, ch)
     Xd = dense().reshape(B_LANES, T, NB, m + 1)
-    rec = dict(shape=[B_LANES, T * NB, T * NB], rhs=m + 1)
+    rec = dict(shape=[B_LANES, T * NB, T * NB], rhs=m + 1, launches_by_way={})
     ways = dict(crp_factor_solve=crp_fused, crp_factor_then_solve=crp_split,
                 chain_sequential=sequential)
+    launches = {}
     for name, fn in ways.items():
+        _reset_launch_counts(ck, ch)
         X = fn()
         torch.cuda.synchronize()
         err = ((X - Xd).abs().max() / Xd.abs().max()).item()
         _require(err < TOL_CHAINS, f"{name} vs dense Cholesky: {err:.3e}")
         rec[f"{name}_rel_err"] = err
-    launches = _launch_counts(ck, ch)
+        way = _launch_counts(ck, ch)
+        rec["launches_by_way"][name] = {k: v for k, v in way.items() if v}
+        launches = {k: launches.get(k, 0) + v for k, v in way.items()}
+    split = rec["launches_by_way"]["crp_factor_then_solve"]
+    _require(split == dict(crp_factor_pass=1, crp_fwd_pass=1, crp_bwd_pass=1),
+             f"crp_factor + crp_solve: launches {split}, want K5, K2, K3 once")
     _require(all(v > 0 for v in launches.values()),
              f"a kernel was never launched by the chain solves: {launches}")
     for name, fn in ways.items():
@@ -919,7 +953,8 @@ def main() -> int:
 
         t0 = time.time()
         clock = chain_clock.run(torch, clock_so, ch.K6_GROUP, ch.K6_THREADS,
-                                ch.K8_GROUP, ch.K8_THREADS)
+                                ch.K7_GROUP, ch.K7_THREADS, ch.K8_GROUP,
+                                ch.K8_THREADS)
         print(json.dumps(dict(phase="clock", seconds=time.time() - t0,
                               **clock)), flush=True)
         fast = clock["fast_ops_vs_ieee"]
@@ -929,9 +964,11 @@ def main() -> int:
 
         t0 = time.time()
         records = check_kernels(torch, ck, ch, dev, clock["latency_cycles"])
-        shipped = {"chain_factor": ch.K6_GROUP, "chain_back_sub": ch.K8_GROUP}
+        shipped = {"chain_factor": [ch.K6_GROUP, ch.K6_THREADS],
+                   "chain_rhs_forward": [ch.K7_GROUP, ch.K7_THREADS],
+                   "chain_back_sub": [ch.K8_GROUP, ch.K8_THREADS]}
         for name, rec in records.items():
-            rec["ptxas"] = ptxas.get(f"{name}[G={shipped.get(name)}]",
+            rec["ptxas"] = ptxas.get(f"{name}[G={shipped.get(name, [0])[0]}]",
                                      ptxas.get(name))
         print(json.dumps(dict(phase="kernels", seconds=time.time() - t0,
                               tolerance_rel=TOL_REL)), flush=True)
@@ -939,11 +976,7 @@ def main() -> int:
         t0 = time.time()
         sweep = sweep_chain_kernels(torch, ch, dev)
         print(json.dumps(dict(phase="sweep", seconds=time.time() - t0,
-                              shipped={"chain_factor": [ch.K6_GROUP,
-                                                        ch.K6_THREADS],
-                                       "chain_back_sub": [ch.K8_GROUP,
-                                                          ch.K8_THREADS]},
-                              **sweep)), flush=True)
+                              shipped=shipped, **sweep)), flush=True)
 
         t0 = time.time()
         chains, by_path = check_chains(torch, ck, ch, dev)
@@ -957,8 +990,8 @@ def main() -> int:
         by_path.update(solve_paths)
         print(json.dumps(dict(phase="solves", seconds=time.time() - t0)),
               flush=True)
-        # A kernel's launches: those of the solves; K4 and K5, which no
-        # solve reaches, have those of the chains phase.
+        # A kernel's launches: those of the solves; K5, which no solve
+        # reaches, has those of the chains phase.
         for name, rec in records.items():
             rec["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
             rec["launches"] = (sum(c[name] for c in solve_paths.values())

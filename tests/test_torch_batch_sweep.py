@@ -10,6 +10,7 @@ numpy noise for both packages.
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from test_torch_solver import DIVE, END, TS, _dive, _endgame, _problem
@@ -29,10 +30,13 @@ from tol_tpu_torch.solver.kkt_condensed import make_condensed_kkt as tcondensed
 AIRFRAMES = ["tempest", "tempest_wences"]
 
 
-def test_grouped_airframe_sweep_matches_jax():
+@pytest.mark.parametrize("DB", [2, 4])
+def test_grouped_airframe_sweep_matches_jax(DB):
     """Two groups of two lanes, one airframe each; dive 10, group cap 20,
-    budget 30, which every lane spends, so the drain runs one chunk per
-    airframe (lanes that share an Instance share a chunk)."""
+    budget 30, which every lane spends.  The drain takes the stragglers in
+    index order, DB at a time: with DB = 2 one chunk per airframe, with
+    DB = 4 one chunk of both airframes' lanes (the reference drains it as
+    one; drain_iters counts it once)."""
     jc, tc = _problem()
     GB, n1, cap1, full = 2, 10, 20, 30
     N = GB * len(AIRFRAMES)
@@ -59,11 +63,11 @@ def test_grouped_airframe_sweep_matches_jax():
     p2j, p2t = _endgame(cap1)
     p2dj, p2dt = _endgame(full)
     gj = jgrouped(jc, jcondensed(jc, refine=1, chain="crp"),
-                  jalm.ALMOptions(**END), group_size=GB, drain_size=GB,
+                  jalm.ALMOptions(**END), group_size=GB, drain_size=DB,
                   dive_opts=jalm.ALMOptions(**DIVE),
                   dive_kkt=jcondensed(jc, refine=0, chain="crp"))
     gt = tgrouped(tc, tcondensed(tc, refine=1, chain="crp"),
-                  talm.ALMOptions(**END), group_size=GB, drain_size=GB,
+                  talm.ALMOptions(**END), group_size=GB, drain_size=DB,
                   dive_opts=talm.ALMOptions(**DIVE),
                   dive_kkt=tcondensed(tc, refine=0, chain="crp"))
     lane_insts = jax.tree_util.tree_map(

@@ -265,6 +265,31 @@ void chain_factor_pass(const T* M, const T* O, const T* R, T* Dinv, T* t2,
     crk::chain_factor_pass(crk::SerialChainTeam{}, M, O, R, Dinv, t2, tR, S,
                            Tn, nC, B, l0, G, smem.data());
 }
+// K7 by the block-step routine.
+template <typename T>
+void rhs_forward_steps(const T* Dinv, const T* O, const T* tRw, const T* r,
+                       T* tr, T* sb, int Tn, int nB, long B) {
+  const int n2 = NB * NB;
+  for (long b = 0; b < B; ++b) {
+    T rcorr[NB] = {0};
+    std::vector<T> acc(nB, T(0));
+    for (int i = 0; i < Tn; ++i)
+      crk::chain_rhs_forward_block<T>(
+          Dinv + (long)i * n2 * B + b, O + (long)i * n2 * B + b,
+          tRw + (long)i * NB * nB * B + b, r + (long)i * NB * B + b,
+          tr + (long)i * NB * B + b, B, rcorr, acc.data(), 1, nB);
+    for (int p = 0; p < nB; ++p) sb[(long)p * B + b] = acc[p];
+  }
+}
+// K7 by the whole-chain routine, C steps a chunk.
+template <typename T>
+void rhs_forward_pass(const T* Dinv, const T* O, const T* tRw, const T* r,
+                      T* tr, T* sb, int Tn, int nB, long B, int G, int C) {
+  std::vector<T> smem(G * crk::rhs_forward_floats(nB, C));
+  for (long l0 = 0; l0 < B; l0 += G)
+    crk::rhs_forward_pass(crk::SerialChainTeam{}, Dinv, O, tRw, r, tr, sb, Tn,
+                          nB, B, l0, G, C, smem.data());
+}
 // K8 by the block-step routine.
 template <typename T>
 void back_sub_steps(const T* tR, const T* t2, const T* coef, T* x, int Tn,
@@ -303,17 +328,7 @@ void h_chain_factor(In M, In O, In R, Out Dinv, Out t2, Out tR, Out S, int Tn,
 // K7 over B lanes.
 void h_chain_rhs_forward(In Dinv, In O, In tRw, In r, Out tr, Out sb, int Tn,
                          int nB, long B) {
-  const int n2 = NB * NB;
-  for (long b = 0; b < B; ++b) {
-    double rcorr[NB] = {0};
-    std::vector<double> acc(nB, 0.0);
-    for (int i = 0; i < Tn; ++i)
-      crk::chain_rhs_forward_block<double>(
-          Dinv + (long)i * n2 * B + b, O + (long)i * n2 * B + b,
-          tRw + (long)i * NB * nB * B + b, r + (long)i * NB * B + b,
-          tr + (long)i * NB * B + b, B, rcorr, acc.data(), 1, nB);
-    for (int p = 0; p < nB; ++p) sb[(long)p * B + b] = acc[p];
-  }
+  rhs_forward_steps(Dinv, O, tRw, r, tr, sb, Tn, nB, B);
 }
 void h_chain_back_sub(In tR, In t2, In coef, Out x, int Tn, int nC, long B) {
   back_sub_steps(tR, t2, coef, x, Tn, nC, B);
@@ -321,6 +336,10 @@ void h_chain_back_sub(In tR, In t2, In coef, Out x, int Tn, int nC, long B) {
 void h_chain_factor_pass(In M, In O, In R, Out Dinv, Out t2, Out tR, Out S,
                          int Tn, int nC, long B, int G) {
   chain_factor_pass(M, O, R, Dinv, t2, tR, S, Tn, nC, B, G);
+}
+void h_rhs_forward_pass(In Dinv, In O, In tRw, In r, Out tr, Out sb, int Tn,
+                        int nB, long B, int G, int C) {
+  rhs_forward_pass(Dinv, O, tRw, r, tr, sb, Tn, nB, B, G, C);
 }
 void h_back_sub_pass(In tR, In t2, In coef, Out x, int Tn, int nC, long B,
                      int G, int Tc) {
@@ -336,6 +355,14 @@ void f_chain_factor(Fi M, Fi O, Fi R, Fo Dinv, Fo t2, Fo tR, Fo S, int Tn,
 void f_chain_factor_pass(Fi M, Fi O, Fi R, Fo Dinv, Fo t2, Fo tR, Fo S, int Tn,
                          int nC, long B, int G) {
   chain_factor_pass(M, O, R, Dinv, t2, tR, S, Tn, nC, B, G);
+}
+void f_chain_rhs_forward(Fi Dinv, Fi O, Fi tRw, Fi r, Fo tr, Fo sb, int Tn,
+                         int nB, long B) {
+  rhs_forward_steps(Dinv, O, tRw, r, tr, sb, Tn, nB, B);
+}
+void f_rhs_forward_pass(Fi Dinv, Fi O, Fi tRw, Fi r, Fo tr, Fo sb, int Tn,
+                        int nB, long B, int G, int C) {
+  rhs_forward_pass(Dinv, O, tRw, r, tr, sb, Tn, nB, B, G, C);
 }
 void f_chain_back_sub(Fi tR, Fi t2, Fi coef, Fo x, int Tn, int nC, long B) {
   back_sub_steps(tR, t2, coef, x, Tn, nC, B);
@@ -364,8 +391,9 @@ def host_kernels(tmp_path_factory):
     so = ctypes.CDLL(str(lib))
     P, Li, I = ctypes.c_void_p, ctypes.c_long, ctypes.c_int
     so.h_factor.argtypes = [P] * 8 + [Li]
-    so.h_chain_rhs_forward.argtypes = [P] * 6 + [I, I, Li]
     for prefix in ("h_", "f_"):
+        getattr(so, prefix + "chain_rhs_forward").argtypes = [P] * 6 + [I, I, Li]
+        getattr(so, prefix + "rhs_forward_pass").argtypes = [P] * 6 + [I, I, Li, I, I]
         getattr(so, prefix + "chain_factor").argtypes = [P] * 7 + [I, I, Li]
         getattr(so, prefix + "chain_factor_pass").argtypes = [P] * 7 + [I, I, Li, I]
         getattr(so, prefix + "chain_back_sub").argtypes = [P] * 4 + [I, I, Li]
@@ -432,11 +460,12 @@ def test_factor_level_device_math_matches_twin(host_kernels):
 @pytest.mark.parametrize("G", [1, 2, 4, 8])
 @pytest.mark.parametrize("nC,T", [(12, 8), (14, 13)])
 def test_chain_pass_math_matches_twins(host_kernels, nC, T, G):
-    """K6's and K8's whole-chain routines (g++, float64) in the card's lane
-    groups against the plain twins.  B = 3 leaves the last group partial
-    for G = 2 and makes one partial group for G = 4, 8; lane 1 has an
-    indefinite pivot.  K8 runs at border width nC + 1 (13 and 15, as the
-    solves use it) in one chunk and in chunks of 3 steps."""
+    """K6's, K7's and K8's whole-chain routines (g++, float64) in the card's
+    lane groups against the plain twins.  B = 3 leaves the last group
+    partial for G = 2 and makes one partial group for G = 4, 8; lane 1 has
+    an indefinite pivot.  K7 runs at border width nC in one chunk and in
+    chunks of 3 steps, K8 at border width nC + 1 (13 and 15, as the solves
+    use it) in one chunk and in chunks of 3 steps."""
     rng = np.random.default_rng(18)
     B = 3
     M, O, R = _bordered_chains(rng, B, T, nC, nan_lane=1)
@@ -452,7 +481,14 @@ def test_chain_pass_math_matches_twins(host_kernels, nC, T, G):
     assert not nan[:, [0, 2]].any()
     assert torch.isnan(got[3]).any(0).any(0).tolist() == [False, True, False]
 
-    _, t2, tRw, _ = want
+    Dinv, t2, tRw, _ = want
+    r = _t(rng.normal(size=(T, NB, 1, B)))
+    want_r = tch.rhs_forward_plain(Dinv, O, tRw, r)
+    for C in (T, 3):
+        got = _call(host_kernels.h_rhs_forward_pass, [Dinv, O, tRw, r],
+                    [z(T, NB, 1, B), z(nC, 1, B)], T, nC, B, G, C)
+        _assert_all_close(got, want_r)
+        assert torch.isnan(got[1]).any(0).any(0).tolist() == [False, True, False]
     tR = torch.cat([tRw, _t(rng.normal(size=(T, NB, 1, B)))], dim=2).contiguous()
     coef = _t(rng.normal(size=(nC + 1, 1, B)))
     want_x = tch.back_substitute_plain(tR, t2, coef)
@@ -471,11 +507,12 @@ def _same_bits(got, want):
 @pytest.mark.parametrize("nC", [12, 14])
 def test_chain_passes_are_the_block_steps_bitwise(host_kernels, nC, G):
     """Same arithmetic, not only the same values: in float32, with no
-    contraction into FMAs, K6's and K8's whole-chain routines give the very
-    bits of the block-step routines walked step by step (chain_chol,
+    contraction into FMAs, K6's, K7's and K8's whole-chain routines give the
+    very bits of the block-step routines walked step by step (chain_chol,
     chain_rt_column, chain_inverse_column, chain_factor_column;
-    chain_back_sub_block), NaN lane included (lane 1, indefinite at block
-    2); K8 in one chunk and in chunks of 4 steps."""
+    chain_rhs_forward_block; chain_back_sub_block), NaN lane included (lane
+    1, indefinite at block 2); K7 and K8 in one chunk and in chunks of 4
+    steps."""
     rng = np.random.default_rng(19)
     B, T = 3, 9
     so = host_kernels
@@ -491,7 +528,16 @@ def test_chain_passes_are_the_block_steps_bitwise(host_kernels, nC, G):
     for g, w in zip(got, want, strict=True):
         assert _same_bits(g, w)
 
-    _, t2, tRw, _ = want
+    Dinv, t2, tRw, _ = want
+    r = f32(rng.normal(size=(T, NB, 1, B)))
+    rhs = lambda: [e(T, NB, 1, B), e(nC, 1, B)]
+    want_r = _call(so.f_chain_rhs_forward, [Dinv, O, tRw, r], rhs(), T, nC, B)
+    assert torch.isnan(want_r[1]).any()
+    for C in (T, 4):
+        got = _call(so.f_rhs_forward_pass, [Dinv, O, tRw, r], rhs(), T, nC, B,
+                    G, C)
+        for g, w in zip(got, want_r, strict=True):
+            assert _same_bits(g, w)
     tR = torch.cat([tRw, f32(rng.normal(size=(T, NB, 1, B)))], dim=2).contiguous()
     coef = f32(rng.normal(size=(nC + 1, 1, B)))
     want = _call(so.f_chain_back_sub, [tR, t2, coef], [e(T, NB, B)], T, nC + 1,

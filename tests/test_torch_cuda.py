@@ -1,4 +1,5 @@
-"""The CUDA kernels K1-K8 on the card, against their plain PyTorch twins.
+"""The CUDA kernels K1-K3, K5-K8 on the card, against their plain PyTorch
+twins.
 
 This file imports neither JAX nor the JAX package, so it also runs where
 only PyTorch is installed.  Without a CUDA device every test skips.  On a
@@ -45,7 +46,7 @@ def _rel(got, want):
 def test_cuda_kernels_match_twins_on_card(cuda_device):
     """The flagship shapes: B=128 chains of T=100 11x11 blocks (7 CR
     levels), 12 border columns in the factor pass, one rhs column in the
-    solve pass.  Every kernel is launched (K4 and K5 by crp_factor)."""
+    solve pass.  Every kernel is launched (K5 by crp_factor)."""
     rng = np.random.default_rng(8)
     M, O, F = _chains(rng, 128, 100, 11, 12)
     ck.reset_launch_counts()
@@ -75,8 +76,9 @@ def test_cuda_indefinite_pivot_is_nan_in_that_lane_only(cuda_device):
 @pytest.mark.cuda
 def test_cuda_wrappers_refuse_float64(cuda_device):
     z = torch.zeros(11, 11, 4, device=cuda_device, dtype=torch.float64)
+    blk = torch.zeros(4, 2, 11, 11, device=cuda_device, dtype=torch.float64)
     with pytest.raises(TypeError, match="float32"):
-        ck.crp_root(z)
+        ck.crp_factor_pass(blk, blk)
     with pytest.raises(TypeError, match="float32"):
         ck.crp_fwd_pass([(z, z, z)], z[:, :, :2],
                         torch.zeros(2, 2, 11, 1, device=cuda_device,
@@ -229,18 +231,21 @@ def test_cuda_passes_keep_an_indefinite_pivot_in_its_lane(cuda_device):
 
 @pytest.mark.cuda
 def test_cuda_solves_launch_each_pass_kernel_once(cuda_device):
-    """crp_factor_solve: one K1, one K3; crp_solve: one K2, one K3; K4 only
-    behind crp_factor."""
+    """crp_factor_solve: one K1, one K3; crp_solve: one K2, one K3;
+    crp_factor: one K5."""
     M, O, F = _flagship_chains(np.random.default_rng(16), 12)
     ck.reset_launch_counts()
     levels, root, _ = ck.crp_factor_solve(
         *[t.to(cuda_device) for t in (M[:, :100], O[:, :100], F[:, :100])])
     counts = lambda: {k.__name__: k.launches for k in ck.KERNELS}
     assert counts() == dict(crp_factor_fwd_pass=1, crp_fwd_pass=0,
-                            crp_bwd_pass=1, crp_root=0, crp_factor_level=0)
+                            crp_bwd_pass=1, crp_factor_pass=0)
     ck.crp_solve(levels, root, F[..., :1].to(cuda_device))
     assert counts() == dict(crp_factor_fwd_pass=1, crp_fwd_pass=1,
-                            crp_bwd_pass=2, crp_root=0, crp_factor_level=0)
+                            crp_bwd_pass=2, crp_factor_pass=0)
+    ck.crp_factor(*[t.to(cuda_device) for t in (M[:, :100], O[:, :100])])
+    assert counts() == dict(crp_factor_fwd_pass=1, crp_fwd_pass=1,
+                            crp_bwd_pass=2, crp_factor_pass=1)
 
 
 def _nan_lanes(t, B):
@@ -309,6 +314,40 @@ def test_cuda_chain_passes_give_the_same_bits_at_every_lane_group(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 37, 128])
+def test_cuda_rhs_forward_gives_the_same_bits_at_every_lane_group(cuda_device,
+                                                                 B):
+    """K7 at every lane group size G and thread count, with partial groups
+    (B = 37 fills no group of 2, 4 or 8 evenly; B = 1 leaves one lane), at
+    border widths 12 and 14: the same bits at every shape, the twin's values
+    within TOL_REL, and lane B - 1 (of two or more), NaN from block 2 on in
+    its factor, NaN alone."""
+    rng = np.random.default_rng(23)
+    T = 100
+    for nB in (12, 14):
+        M, O, R = (ch._lanes_last(t) for t in _chains(rng, B, T, 11, nB))
+        Dinv, _, tRw, _ = ch.factor_eliminate_plain(M, O, R)
+        if B > 1:
+            Dinv[2:, :, :, B - 1] = float("nan")
+        r = torch.as_tensor(rng.normal(size=(T, 11, 1, B)), dtype=torch.float32)
+        want = ch.rhs_forward_plain(Dinv, O, tRw, r)
+        args = [t.to(cuda_device) for t in (Dinv, O, tRw, r)]
+        ref = ch._rhs_forward_batched(*args)
+        lanes = [B > 1 and b == B - 1 for b in range(B)]
+        for g, w in zip(ref, want):
+            g = g.cpu()
+            assert torch.equal(torch.isnan(g), torch.isnan(w))
+            assert _nan_lanes(g, B) == lanes
+            ok = ~torch.isnan(w)
+            assert ((g[ok] - w[ok]).abs().max() / w[ok].abs().max()).item() < TOL_REL
+        for G, threads in [(1, 64), (1, 512), (2, 128), (4, 128), (4, 256),
+                           (8, 512)]:
+            got = ch._rhs_forward_batched(*args, group=G, threads=threads)
+            assert all(torch.equal(g.view(torch.int32), r_.view(torch.int32))
+                       for g, r_ in zip(got, ref))
+
+
+@pytest.mark.cuda
 def test_cuda_chain_kernels_refuse_a_bad_launch_shape(cuda_device):
     z = lambda *s: torch.zeros(*s, device=cuda_device)
     M = z(4, 11, 11, 8) + torch.eye(11, device=cuda_device)[None, :, :, None]
@@ -322,4 +361,7 @@ def test_cuda_chain_kernels_refuse_a_bad_launch_shape(cuda_device):
     with pytest.raises(RuntimeError, match="invalid argument"):
         ch._back_substitute_batched(z(4, 11, 13, 8), z(4, 11, 11, 8),
                                     z(13, 1, 8), group=8, threads=96)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        ch._rhs_forward_batched(M, z(4, 11, 11, 8), z(4, 11, 12, 8),
+                                z(4, 11, 1, 8), group=4, threads=64)
     assert ch._factor_eliminate_batched.launches == before

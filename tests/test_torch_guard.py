@@ -71,7 +71,7 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
     from tol_tpu_torch.ops import chainkern as ch
     from tol_tpu_torch.ops import crkern as ck
     with pytest.raises(ValueError, match="CUDA"):
-        ck._check("k", [torch.zeros(11, 11, 4)])
+        ck._check_shapes("k", [(torch.zeros(11, 11, 4), (11, 11, 4))])
     with pytest.raises(ValueError, match="CUDA"):
         ch._check("k", [(torch.zeros(3, 11, 11, 4), (3, 11, 11, 4))])
     # a tensor that is neither on the CPU nor on the card goes to the launch
@@ -79,14 +79,13 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
     z = lambda *s: torch.zeros(*s, device="meta")
     slab = z(11, 11, 4)
     for call in (
-            lambda: ck.crp_factor_level(slab, slab, slab, slab),
+            lambda: ck.crp_factor_pass(z(4, 8, 11, 11), z(4, 8, 11, 11)),
             lambda: ck.crp_factor_fwd_pass(z(4, 8, 11, 11), z(4, 8, 11, 11),
                                            z(4, 8, 11, 12)),
             lambda: ck.crp_bwd_pass([(slab, slab, slab)], [z(11, 12, 4)],
                                     z(11, 12, 2)),
             lambda: ck.crp_fwd_pass([(slab, slab, slab)], z(11, 11, 4),
                                     z(4, 2, 11, 1)),
-            lambda: ck.crp_root(slab),
             lambda: ch._factor_eliminate_batched(z(3, 11, 11, 4),
                                                  z(3, 11, 11, 4),
                                                  z(3, 11, 14, 4)),

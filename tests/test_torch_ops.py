@@ -212,6 +212,22 @@ void factor_fwd_pass(const T* M, const T* O, const T* F, T** minv, T** ol,
         crk::lanes_first_view(F, m, n, n_pad), out, Ri, X, B, n, n_pad, m,
         smem.data());
 }
+// K5: K1's pass with no rhs, as the kernel calls it.
+template <typename T>
+void factor_pass(const T* M, const T* O, T** minv, T** ol, T** orr, T* Ri,
+                 long B, int n_pad) {
+  crk::LevelPtrs<T*> out{};
+  for (int l = 0; l < crk::log2_exact(n_pad); ++l) {
+    out.minv[l] = minv[l]; out.ol[l] = ol[l]; out.orr[l] = orr[l];
+  }
+  std::vector<T> smem(crk::factor_fwd_pass_floats(n_pad, 0) + 1);
+  for (long n = 0; n < B; ++n)
+    crk::factor_fwd_pass<T>(
+        crk::SerialTeam{}, crk::lanes_first_view(M, crk::NB, n, n_pad),
+        crk::lanes_first_view(O, crk::NB, n, n_pad),
+        crk::Unit<const T>{nullptr, 1, 0}, out, Ri, nullptr, B, n, n_pad, 0,
+        smem.data());
+}
 template <typename T>
 void fwd_pass(const T** minv, const T** ol, const T** orr, const T* Ri,
               const T* f, T** fo, T* x, long B, int n_pad, int m, int G) {
@@ -263,6 +279,10 @@ void h_factor_fwd_pass(In M, In O, In F, Out* minv, Out* ol, Out* orr,
                        Out* fo, Out Ri, Out X, long B, int n_pad, int m) {
   factor_fwd_pass(M, O, F, minv, ol, orr, fo, Ri, X, B, n_pad, m);
 }
+void h_factor_pass(In M, In O, Out* minv, Out* ol, Out* orr, Out Ri, long B,
+                   int n_pad) {
+  factor_pass(M, O, minv, ol, orr, Ri, B, n_pad);
+}
 void h_fwd_pass(In* minv, In* ol, In* orr, In Ri, In f, Out* fo, Out x, long B,
                 int n_pad, int m, int G) {
   fwd_pass(minv, ol, orr, Ri, f, fo, x, B, n_pad, m, G);
@@ -301,6 +321,10 @@ void f_factor_fwd_pass(const float* M, const float* O, const float* F,
                        float* Ri, float* X, long B, int n_pad, int m) {
   factor_fwd_pass(M, O, F, minv, ol, orr, fo, Ri, X, B, n_pad, m);
 }
+void f_factor_pass(const float* M, const float* O, float** minv, float** ol,
+                   float** orr, float* Ri, long B, int n_pad) {
+  factor_pass(M, O, minv, ol, orr, Ri, B, n_pad);
+}
 void f_fwd_pass(const float** minv, const float** ol, const float** orr,
                 const float* Ri, const float* f, float** fo, float* x, long B,
                 int n_pad, int m, int G) {
@@ -336,6 +360,7 @@ def host_kernels(tmp_path_factory):
     so.h_root.argtypes = [P] * 4 + [Li, I, I]
     for prefix in ("h_", "f_"):
         getattr(so, prefix + "factor_fwd_pass").argtypes = [P] * 9 + [Li, I, I]
+        getattr(so, prefix + "factor_pass").argtypes = [P] * 6 + [Li, I]
         getattr(so, prefix + "fwd_pass").argtypes = [P] * 7 + [Li, I, I, I]
         getattr(so, prefix + "bwd_pass").argtypes = [P] * 6 + [Li, I, I]
     so.f_factor_fwd.argtypes = [P] * 12 + [Li, I]
@@ -412,6 +437,21 @@ def _host_factor_fwd_pass(so, M, O, F, prefix="h_"):
     return levels, stack, Ri, x
 
 
+def _host_factor_pass(so, M, O, prefix="h_"):
+    """K5's pass routine (K1's with no rhs) on batch-first M, O ->
+    (levels, root_inv) as the twin returns them."""
+    B, n_pad = M.shape[:2]
+    new = lambda h: torch.empty(11, 11, h * B, dtype=M.dtype)
+    levels = [(new(h), new(h), new(h))
+              for h in (n_pad >> (l + 1) for l in range(n_pad.bit_length() - 1))]
+    Ri = new(1)
+    getattr(so, prefix + "factor_pass")(
+        M.data_ptr(), O.data_ptr(),
+        *[_ptrs([lv[i] for lv in levels]) for i in range(3)], Ri.data_ptr(), B,
+        n_pad)
+    return levels, Ri
+
+
 def _host_fwd_pass(so, levels, root_inv, f, G, prefix="h_"):
     """K2's pass routine (g++) over lane groups of G on the batch-first rhs
     f -> (stack, x) as the twin returns them."""
@@ -447,11 +487,11 @@ def _assert_close(got, want):
 
 @pytest.mark.parametrize("m", [12, 1])
 def test_kernel_pass_math_matches_pass_twins(host_kernels, m):
-    """K1's, K2's and K3's whole-pass routines (n_pad = 16: 4 levels, 3
-    lanes; K2 in the lane groups of the kernel, one partial group here),
+    """K1's, K5's, K2's and K3's whole-pass routines (n_pad = 16: 4 levels,
+    3 lanes; K2 in the lane groups of the kernel, one partial group here),
     compiled for the host in float64 and run step by step, against
-    factor_fwd_pass_plain (K1's root tail included), fwd_pass_plain and
-    bwd_pass_plain."""
+    factor_fwd_pass_plain (K1's root tail included), factor_pass_plain (K5:
+    the same pass with no rhs), fwd_pass_plain and bwd_pass_plain."""
     rng = np.random.default_rng(11)
     B, n_pad = 3, 16
     M, O, F = (torch.as_tensor(x) for x in _chains(rng, B, n_pad, 11, m))
@@ -459,6 +499,9 @@ def test_kernel_pass_math_matches_pass_twins(host_kernels, m):
                                      tck._to_slab(F), B)
     got = _host_factor_fwd_pass(host_kernels, M, O, F)
     _assert_close(_flat(*got), _flat(*want))
+    got = _host_factor_pass(host_kernels, M, O)
+    levels0, root0 = tck.factor_pass_plain(tck._to_slab(M), tck._to_slab(O), B)
+    _assert_close(_flat(got[0], [], got[1]), _flat(levels0, [], root0))
     levels, stack, root_inv, _ = want
     f = torch.as_tensor(rng.normal(size=(B, n_pad, 11, m)))
     G = host_kernels.fwd_group(n_pad, m)
@@ -550,8 +593,9 @@ def test_kernel_passes_are_the_level_loop_bitwise(host_kernels, m):
     contraction into FMAs, the pass routines give the very bits of the
     per-level column routines driven level by level with the even/odd split,
     shifts and interleave in torch (n_pad = 16: 4 levels, 3 lanes): K1 those
-    of factor_fwd_column and of root_column's invert branch, K2 (in the
-    kernel's lane groups) those of fwd_column and of root_column's apply
+    of factor_fwd_column and of root_column's invert branch, K5 (K1's pass
+    with no rhs) those of the same levels' factor and root inverse, K2 (in
+    the kernel's lane groups) those of fwd_column and of root_column's apply
     branch, K3 those of bwd_column."""
     rng = np.random.default_rng(17)
     B, n_pad = 3, 16
@@ -576,6 +620,10 @@ def test_kernel_passes_are_the_level_loop_bitwise(host_kernels, m):
     Ri, xr = _call(so.f_root, [Ms, Fs], [blk(), rhs()], B, m, 1)
     got = _host_factor_fwd_pass(so, M, O, F, prefix="f_")
     for g, w in zip(_flat(*got), _flat(levels, stack, Ri, xr), strict=True):
+        assert torch.equal(g, w)
+    got = _host_factor_pass(so, M, O, prefix="f_")
+    for g, w in zip(_flat(got[0], [], got[1]), _flat(levels, [], Ri),
+                    strict=True):
         assert torch.equal(g, w)
     # K2 against the same factor
     f = torch.as_tensor(rng.normal(size=(B, n_pad, 11, m)), dtype=torch.float32)

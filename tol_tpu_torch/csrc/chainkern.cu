@@ -36,9 +36,19 @@
 // memory and waits on no store.  The ring, the carries and the scratch take
 // 10 KB a lane at nC = 14.
 //
-// K7 design: one thread per lane, 32 lanes per thread block; the 11-vector
-// carry is in registers, the border accumulator (nB run-time entries) in
-// shared memory.
+// K7 design (crk::rhs_forward_pass): G lanes per thread block, the steps
+// in chunks of C.  Per step the chain is two dependent 11-term sums: row k
+// of lane g's Dinv r~ on thread 16 g + k, then row k of O^T tr, r~ and tr
+// passed from row to row through shared memory under a warp barrier, with
+// no block barrier and no device load.  Per chunk one block barrier:
+// meanwhile the other warps copy (cp.async) chunk c + 2's Dinv, O, r and
+// tRw into a four-chunk ring, lane by lane, with each row padded to 16
+// bytes (O transposed), add chunk c - 1's border terms tRw^T r~ to sb (one
+// thread per border entry, lagging the chain) and write chunk c - 1's tr
+// out.  Shared memory takes 53.9 KB a lane at C = 8, nB = 12.  What bounds
+// it is that staging: every batch-last float is a 32-byte sector of its
+// own at G = 1 (385 a lane and step), and the copies share the load/store
+// unit with the chain, which runs 2.4 times slower beside them (PERF.md).
 //
 // K8 design (crk::back_sub_pass): G lanes per thread block.  The part of
 // each step that does not depend on the chain, a_i = tR_i coef, is computed
@@ -60,10 +70,10 @@
 
 namespace {
 
-constexpr int kLanes = 32;    // K7: lanes per thread block (one warp wide)
 // Most threads a block may have: K6 keeps its Cholesky factor in registers
-// (up to 255 a thread with 256 threads), K8 needs few.
+// (up to 255 a thread with 256 threads), K7 and K8 need fewer.
 constexpr int kFactorThreads = 256;
+constexpr int kRhsThreads = 512;
 constexpr int kBackSubThreads = 512;
 constexpr int NB = crk::NB;
 constexpr int NB2 = NB * NB;
@@ -81,27 +91,18 @@ chain_factor_kernel(const float* __restrict__ M, const float* __restrict__ O,
                                 S, T, nC, B, (long)blockIdx.x * G, G, sm);
 }
 
-__global__ void __launch_bounds__(kLanes)
+// K7: thread block b runs the forward pass of lanes b*G .. b*G + G - 1, C
+// steps a chunk.
+template <int G>
+__global__ void __launch_bounds__(kRhsThreads, 1)
 chain_rhs_forward_kernel(const float* __restrict__ Dinv,
                          const float* __restrict__ O,
                          const float* __restrict__ tRw,
                          const float* __restrict__ r, float* __restrict__ tr,
-                         float* __restrict__ sb, int T, int nB, long B) {
+                         float* __restrict__ sb, int T, int nB, long B, int C) {
   extern __shared__ float sm[];
-  const long b = (long)blockIdx.x * kLanes + threadIdx.x;
-  if (b >= B) return;
-  float* acc = sm + threadIdx.x;          // entry p at [p * kLanes]
-  for (int p = 0; p < nB; ++p) acc[p * kLanes] = 0.0f;
-  float rcorr[NB];
-#pragma unroll
-  for (int k = 0; k < NB; ++k) rcorr[k] = 0.0f;
-  for (int i = 0; i < T; ++i) {
-    crk::chain_rhs_forward_block<float>(
-        Dinv + (long)i * NB2 * B + b, O + (long)i * NB2 * B + b,
-        tRw + (long)i * NB * nB * B + b, r + (long)i * NB * B + b,
-        tr + (long)i * NB * B + b, B, rcorr, acc, kLanes, nB);
-  }
-  for (int p = 0; p < nB; ++p) sb[(long)p * B + b] = acc[p * kLanes];
+  crk::rhs_forward_pass<float>(crk::BlockChainTeam{}, Dinv, O, tRw, r, tr, sb,
+                               T, nB, B, (long)blockIdx.x * G, G, C, sm);
 }
 
 // K8: thread block b back-substitutes lanes b*G .. b*G + G - 1, Tc steps a
@@ -118,9 +119,10 @@ chain_back_sub_kernel(const float* __restrict__ tR, const float* __restrict__ t2
 
 inline bool lane_group_ok(int G) { return G >= 1 && G <= 8 && !(G & (G - 1)); }
 
-// K6 and K8 may ask for any dynamic shared memory up to what a block can
+// K6-K8 may ask for any dynamic shared memory up to what a block can
 // have: the limit is raised to that once per device and lane group size.
 long chain_factor_smem[4][crk::kMaxDevices] = {};
+long rhs_forward_smem[4][crk::kMaxDevices] = {};
 long back_sub_smem[4][crk::kMaxDevices] = {};
 
 // The entry (0-3) of lane group size G (1, 2, 4, 8) in the tables above,
@@ -165,14 +167,28 @@ int chain_factor(const float* M, const float* O, const float* R, float* Dinv,
   });
 }
 
+// K7 over B lanes, G lanes (1, 2, 4 or 8) per thread block of `threads`
+// threads (a multiple of 32, at most 512, more than the warps of the G
+// lanes' row threads).
 int chain_rhs_forward(const float* Dinv, const float* O, const float* tRw,
                       const float* r, float* tr, float* sb, int T, int nB,
-                      long B, void* stream) {
-  chain_rhs_forward_kernel<<<(int)((B + kLanes - 1) / kLanes), kLanes,
-                             (size_t)nB * kLanes * sizeof(float),
-                             (cudaStream_t)stream>>>(Dinv, O, tRw, r, tr, sb, T,
-                                                     nB, B);
-  return (int)cudaGetLastError();
+                      long B, int G, int threads, void* stream) {
+  const int C = lane_group_ok(G) ? crk::rhs_forward_chunk(nB, G) : 0;
+  if (C < 1 || threads % 32 || threads > kRhsThreads ||
+      threads <= crk::chain_threads(G) || T < 1 || nB < 1 || B < 1)
+    return (int)cudaErrorInvalidValue;
+  const long smem = G * crk::rhs_forward_floats(nB, C) * (long)sizeof(float);
+  return (int)launch_group(G, [&](auto g) {
+    constexpr int kG = decltype(g)::value;
+    cudaError_t err = crk::allow_smem(chain_rhs_forward_kernel<kG>,
+                                      crk::kMaxSmemBytes,
+                                      rhs_forward_smem[group_index(kG)]);
+    if (err != cudaSuccess) return err;
+    chain_rhs_forward_kernel<kG><<<(int)((B + kG - 1) / kG), threads, smem,
+                                   (cudaStream_t)stream>>>(
+        Dinv, O, tRw, r, tr, sb, T, nB, B, C);
+    return cudaGetLastError();
+  });
 }
 
 // K8 over B lanes, G lanes (1, 2, 4 or 8) per thread block of `threads`

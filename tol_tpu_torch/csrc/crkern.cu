@@ -1,4 +1,4 @@
-// Cyclic-reduction kernels for Hopper (sm_90a): K1-K5.
+// Cyclic-reduction kernels for Hopper (sm_90a): K1-K3 and K5.
 //
 // They replace the Pallas TPU kernels of tol_tpu/ops/crkern.py:
 //   K1 crp_factor_fwd_pass  <- crkern.py:_factor_fwd_kernel, all levels,
@@ -6,28 +6,29 @@
 //   K2 crp_fwd_pass         <- crkern.py:_fwd_kernel, all levels, then
 //                              _root_solve_kernel
 //   K3 crp_bwd_pass         <- crkern.py:_bwd_kernel, all levels
-//   K4 crp_root             <- crkern.py:_root_kernel (crp_factor's root)
-//   K5 crp_factor_level     <- crkern.py:_factor_kernel (K1 without rhs)
+//   K5 crp_factor_pass      <- crkern.py:_factor_kernel, all levels, then
+//                              _root_kernel (K1 without rhs)
 // and inline the slab helpers those call (chainkern.py:_chol_slab,
 // _spd_inverse_slab, _mm_slab, _mm_tn_slab; crkern.py:_mm_nt_slab) as the
 // __host__ __device__ routines of crkern_block.cuh.
 //
-// K1, K2 and K3 are whole-pass kernels: one launch runs every CR level of a
+// All four are whole-pass kernels: one launch runs every CR level of a
 // pass and the root step.  The Pallas kernels they replace run one grid per
 // level, with the even/odd split, the one-block shifts and the interleave
 // between levels done by XLA, and the root in kernels of its own; a lane's
 // levels depend only on that lane, so here a __syncthreads() takes the
 // place of the launch boundary and that plumbing is index arithmetic.  A
 // factor + solve is two launches (K1, K3), a solve with a stored factor two
-// (K2, K3).
+// (K2, K3), a factor alone one (K5: K1's pass with no rhs, m = 0).
 //
 // What bounds them on an H100: by the bytes a pass must move, memory
 // (about 2 FLOP per byte against the ~20 at which the 67 TFLOP/s fp32 units
 // would take over from the 3.35 TB/s HBM): level-0 inputs read once
-// (K1: M, O, F; K2: the factor and f; K3: the factor, the saved rhs, the
-// root solution) and outputs written once (K1: every level's Minv, OL, OR,
-// Fo and the root's inverse and solution; K2: the saved rhs and the root
-// solution; K3: the solution).  What bounds them in fact is the layout of
+// (K1: M, O, F; K5: M, O; K2: the factor and f; K3: the factor, the saved
+// rhs, the root solution) and outputs written once (K1: every level's Minv,
+// OL, OR, Fo and the root's inverse and solution; K5: the same without Fo
+// and solution; K2: the saved rhs and the root solution; K3: the
+// solution).  What bounds them in fact is the layout of
 // the factor: K2 and K3 read it as batch-last slabs (i, j, k*B + n), so
 // with one lane per thread block (K1, K3) every slab entry is a lone 4-byte
 // access, which costs an SM several cycles as a store and about a third of
@@ -36,7 +37,7 @@
 //   - Levels >= 1 never touch device memory: K1 keeps each level's M, O, F
 //     in shared memory, ping-ponging between a region of n_pad/2 and one of
 //     n_pad/4 blocks, beside the level's pivot inverses (176 KB at n_pad =
-//     128, m = 12; 184 KB at m = 14); K2 keeps f and t = Minv fo (7 KB a
+//     128, m = 12; 184 KB at m = 14; K5 125 KB); K2 keeps f and t = Minv fo (7 KB a
 //     lane at m = 1, 85 KB at m = 12); K3 keeps x and the residuals (118 KB
 //     at m = 14).
 //   - Work is spread over a block's threads by output entry, not by
@@ -73,11 +74,8 @@
 
 namespace {
 
-constexpr int kThreads = 128;
-// one thread block per lane (K1, K3) or lane group (K2)
+// one thread block per lane (K1, K3, K5) or lane group (K2)
 constexpr int kPassThreads = 512;
-
-inline int blocks_for(long L) { return (int)((L + kThreads - 1) / kThreads); }
 
 // K1: thread block n runs the factor pass of lane n, from the batch-first
 // level 0 M, O (B, n_pad, 11, 11) and F (B, n_pad, 11, m).
@@ -93,6 +91,21 @@ factor_fwd_pass_kernel(const float* __restrict__ M, const float* __restrict__ O,
                        crk::lanes_first_view(O, crk::NB, n, n_pad),
                        crk::lanes_first_view(F, m, n, n_pad), out, Rinv, X, B,
                        n, n_pad, m, smem);
+}
+
+// K5: thread block n runs the factor pass of lane n with no rhs (m = 0):
+// every level's Minv, OL, OR and the root's inverse.
+__global__ void __launch_bounds__(kPassThreads, 1)
+factor_pass_kernel(const float* __restrict__ M, const float* __restrict__ O,
+                   const crk::LevelPtrs<float*> out, float* __restrict__ Rinv,
+                   long B, int n_pad) {
+  extern __shared__ float smem[];
+  const long n = blockIdx.x;
+  crk::factor_fwd_pass<float>(crk::BlockTeam{},
+                              crk::lanes_first_view(M, crk::NB, n, n_pad),
+                              crk::lanes_first_view(O, crk::NB, n, n_pad),
+                              crk::Unit<const float>{nullptr, 1, 0}, out, Rinv,
+                              nullptr, B, n, n_pad, 0, smem);
 }
 
 // K2: thread block b runs the forward pass of lanes b*G .. b*G + G - 1.
@@ -121,6 +134,7 @@ using crk::allow_smem;
 using crk::kMaxDevices;
 
 long factor_fwd_pass_smem[kMaxDevices] = {};
+long factor_pass_smem[kMaxDevices] = {};
 long fwd_pass_smem[kMaxDevices] = {};
 long bwd_pass_smem[kMaxDevices] = {};
 
@@ -136,26 +150,6 @@ crk::LevelPtrs<P> level_ptrs(P const* minv, P const* ol, P const* orr,
     if (fo) lv.fo[l] = fo[l];
   }
   return lv;
-}
-
-__global__ void __launch_bounds__(kThreads)
-factor_level_kernel(const float* __restrict__ Mo, const float* __restrict__ Me,
-                    const float* __restrict__ OL, const float* __restrict__ OR,
-                    float* __restrict__ Minv, float* __restrict__ Mhalf,
-                    float* __restrict__ Onext, float* __restrict__ S, long L) {
-  const long c = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= L) return;
-  float inv[crk::NB * crk::NB];
-  crk::factor_column<float>(Mo + c, Me + c, OL + c, OR + c, Minv + c, Mhalf + c,
-                            Onext + c, S + c, L, inv);
-}
-
-// K4: root_column's invert branch with no rhs, one thread per lane.
-__global__ void __launch_bounds__(kThreads)
-root_kernel(const float* __restrict__ A, float* __restrict__ Rinv, long L) {
-  const long c = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= L) return;
-  crk::root_column<float>(A + c, nullptr, Rinv + c, nullptr, L, 0, 1);
 }
 
 }  // namespace
@@ -180,11 +174,18 @@ int crp_factor_fwd_pass(const float* M, const float* O, const float* F,
   return (int)cudaGetLastError();
 }
 
-int crp_factor_level(const float* Mo, const float* Me, const float* OL,
-                     const float* OR, float* Minv, float* Mhalf, float* Onext,
-                     float* S, long L, void* stream) {
-  factor_level_kernel<<<blocks_for(L), kThreads, 0, (cudaStream_t)stream>>>(
-      Mo, Me, OL, OR, Minv, Mhalf, Onext, S, L);
+// K5 over B lanes: K1 with no rhs; the slabs minv, ol, orr as K1's, Rinv
+// (11, 11, B) the root's inverse.
+int crp_factor_pass(const float* M, const float* O, float* const* minv,
+                    float* const* ol, float* const* orr, float* Rinv, long B,
+                    int n_pad, void* stream) {
+  const long smem = crk::factor_fwd_pass_floats(n_pad, 0) * (long)sizeof(float);
+  cudaError_t err = allow_smem(factor_pass_kernel, smem, factor_pass_smem);
+  if (err != cudaSuccess) return (int)err;
+  factor_pass_kernel<<<(int)B, kPassThreads, smem, (cudaStream_t)stream>>>(
+      M, O,
+      level_ptrs(minv, ol, orr, (float* const*)nullptr, crk::log2_exact(n_pad)),
+      Rinv, B, n_pad);
   return (int)cudaGetLastError();
 }
 
@@ -223,12 +224,6 @@ int crp_bwd_pass(const float* const* minv, const float* const* ol,
   bwd_pass_kernel<<<(int)B, kPassThreads, smem, (cudaStream_t)stream>>>(
       level_ptrs(minv, ol, orr, fo, crk::log2_exact(n_pad)), x0, X, B, n_pad,
       m);
-  return (int)cudaGetLastError();
-}
-
-// K4: Rinv = A^-1 for the L root blocks of the slab A (11, 11, L).
-int crp_root(const float* A, float* Rinv, long L, void* stream) {
-  root_kernel<<<blocks_for(L), kThreads, 0, (cudaStream_t)stream>>>(A, Rinv, L);
   return (int)cudaGetLastError();
 }
 

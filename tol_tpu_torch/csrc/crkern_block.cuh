@@ -1,4 +1,4 @@
-// Block routines of the cyclic-reduction (CR) kernels K1-K5 (the
+// Block routines of the cyclic-reduction (CR) kernels K1-K3, K5 (the
 // sequential-chain kernels K6-K8 build on them in chainkern_block.cuh):
 // per-column routines first, then the whole-pass routines of K1, K2 and K3,
 // which run the same arithmetic item by item (see "Whole-pass routines").
@@ -155,10 +155,12 @@ CRK_HD void spd_inverse(const T* __restrict__ A, long L, T* __restrict__ X) {
 // Slab strides of an NB x w block: row i, column j at (i * w + j) * L.
 #define CRK_AT(p, i, j, w) (p)[((long)(i) * (w) + (j)) * L]
 
-// K5 — one CR level without rhs (crkern._factor_kernel):
+// One CR level without rhs for one column (crkern._factor_kernel):
 //   Minv = Mo^-1, Mhalf = Me - OL Minv OL^T, Onext = -OL Minv OR,
 //   S = OR^T Minv OR.
 // Minv is also left in the caller's row-major array, for K1's rhs part.
+// No kernel calls it since K5 became K1's pass with no rhs; with
+// factor_fwd_column it states the arithmetic that pass is held to.
 template <typename T>
 CRK_HD void factor_column(const T* __restrict__ Mo, const T* __restrict__ Me,
                           const T* __restrict__ OL, const T* __restrict__ OR,
@@ -188,8 +190,8 @@ CRK_HD void factor_column(const T* __restrict__ Mo, const T* __restrict__ Me,
 }
 
 // One level of K1 for one (block, lane) column, factor fused with the
-// forward elimination of m rhs columns (crkern._factor_fwd_kernel): K5's
-// outputs, then g = Minv Fo, Fe2 = Fe - OL g, brF = OR^T g.  No kernel
+// forward elimination of m rhs columns (crkern._factor_fwd_kernel):
+// factor_column's outputs, then g = Minv Fo, Fe2 = Fe - OL g, brF = OR^T g.  No kernel
 // calls it since K1 became a whole pass; it stays as the column-by-column
 // statement of the arithmetic that factor_fwd_level spreads over items: the
 // host build holds it against the twin, and the pass against it bit for bit
@@ -267,9 +269,9 @@ CRK_HD void bwd_column(const T* __restrict__ Minv, const T* __restrict__ OL,
 // The root block (crkern._root_kernel + _root_solve_kernel).
 // invert != 0: Rinv = A^-1 is computed and stored, then X = Rinv F.
 // invert == 0: A already holds the stored inverse; X = A F.
-// K4 launches the invert branch with no rhs (m = 0).  The invert branch with
-// rhs is the column statement of K1's tail, the apply branch that of the K2
-// pass's last step; the host tests hold the passes against both.
+// No kernel calls it: the invert branch is the column statement of the
+// root tail of K1 (with rhs) and of K5 (m = 0), the apply branch that of the
+// K2 pass's last step; the host tests hold the passes against both.
 template <typename T>
 CRK_HD void root_column(const T* __restrict__ A, const T* __restrict__ F,
                         T* __restrict__ Rinv_o, T* __restrict__ X_o, long L,
@@ -565,7 +567,8 @@ CRK_HD void factor_fwd_level(const Team& team, const Unit<const T>& cM,
 // from M0, O0, F0; each level's Minv, OL, OR, Fo go to the slabs of `out`
 // (lane column `lane` of B), levels >= 1 live in shared memory, and the
 // root's inverse and solution go to the slabs Rinv (NB, NB, B) and X
-// (NB, m, B).
+// (NB, m, B).  With m = 0 (K5: the factor alone) F0, Fo and X are neither
+// read nor written.
 template <typename T, typename Team>
 CRK_HD void factor_fwd_pass(const Team& team, const Unit<const T>& M0,
                             const Unit<const T>& O0, const Unit<const T>& F0,
@@ -586,7 +589,7 @@ CRK_HD void factor_fwd_pass(const Team& team, const Unit<const T>& M0,
         nF{base + 2 * c * N2, 1, wF};
     const long L = h * B;
     const Slab<T> oMinv{out.minv[l] + lane, L, B}, oOL{out.ol[l] + lane, L, B},
-        oOR{out.orr[l] + lane, L, B}, oFo{out.fo[l] + lane, L, B};
+        oOR{out.orr[l] + lane, L, B}, oFo{m ? out.fo[l] + lane : nullptr, L, B};
     factor_fwd_level(team, cM, cO, cF, nM, nO, nF, oMinv, oOL, oOR, oFo, W, h,
                      m);
     cM = {nM.p, 1, N2};

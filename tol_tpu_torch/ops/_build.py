@@ -32,14 +32,13 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
 _SIGNATURES = {
     "crkern": {
         "crp_factor_fwd_pass": [_P] * 9 + [_L, _I, _I, _P],
-        "crp_factor_level": [_P] * 8 + [_L, _P],
+        "crp_factor_pass": [_P] * 6 + [_L, _I, _P],
         "crp_fwd_pass": [_P] * 7 + [_L, _I, _I, _P],
         "crp_bwd_pass": [_P] * 6 + [_L, _I, _I, _P],
-        "crp_root": [_P] * 2 + [_L, _P],
     },
     "chainkern": {
         "chain_factor": [_P] * 7 + [_I, _I, _L, _I, _I, _P],
-        "chain_rhs_forward": [_P] * 6 + [_I, _I, _L, _P],
+        "chain_rhs_forward": [_P] * 6 + [_I, _I, _L, _I, _I, _P],
         "chain_back_sub": [_P] * 4 + [_I, _I, _L, _I, _I, _P],
     },
 }

@@ -35,9 +35,10 @@ from tol_tpu_torch.ops import _build
 from tol_tpu_torch.ops.crkern import _mm, _mm_tn, _spd_inverse_slab
 
 _NB = 11  # the kernels are built for the 11x11 node blocks
-# Launch shapes of K6 and K8: lanes per thread block and threads per block
-# (PERF.md, the sweeps of the fifth slice).
+# Launch shapes of K6-K8: lanes per thread block and threads per block
+# (PERF.md, the sweeps of the fifth and sixth slices).
 K6_GROUP, K6_THREADS = 1, 256
+K7_GROUP, K7_THREADS = 1, 512
 K8_GROUP, K8_THREADS = 1, 256
 
 # ---------------------------------------------------------------------------
@@ -141,9 +142,10 @@ def _factor_eliminate_batched(M, O, R, group=K6_GROUP, threads=K6_THREADS):
     return tuple(outs)
 
 
-def _rhs_forward_batched(Dinv, O, tRw, r):
+def _rhs_forward_batched(Dinv, O, tRw, r, group=K7_GROUP, threads=K7_THREADS):
     """K7 (replaces chainkern.py:_rhs_forward_kernel): see
-    :func:`rhs_forward_plain` for shapes."""
+    :func:`rhs_forward_plain` for shapes.  ``group`` lanes (1, 2, 4 or 8)
+    share a thread block of ``threads`` threads."""
     if Dinv.device.type == "cpu":
         return rhs_forward_plain(Dinv, O, tRw, r)
     T, B, nB = Dinv.shape[0], Dinv.shape[3], tRw.shape[2]
@@ -152,7 +154,7 @@ def _rhs_forward_batched(Dinv, O, tRw, r):
     outs = [torch.empty_like(r),
             torch.empty(nB, 1, B, dtype=r.dtype, device=r.device)]
     _launch("chain_rhs_forward", _rhs_forward_batched, [Dinv, O, tRw, r], outs,
-            T, nB, B)
+            T, nB, B, group, threads)
     return tuple(outs)
 
 

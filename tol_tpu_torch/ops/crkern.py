@@ -9,7 +9,7 @@ Newton direction to the float32 noise floor and fail the S10 cost gate.
 
 Each level's blocks sit in a slab ``(a, b, p*B)`` whose entry
 ``(i, j, k*B + n)`` is block k of lane n, so neighbouring lanes are
-neighbouring addresses.  Five kernels do the level math
+neighbouring addresses.  Four kernels do the level math
 (``csrc/crkern.cu``):
 
     K1 crp_factor_fwd_pass    factor + eliminate known rhs, all levels,
@@ -17,17 +17,15 @@ neighbouring addresses.  Five kernels do the level math
     K2 crp_fwd_pass           eliminate a new rhs against a stored factor,
                               all levels, then apply the root inverse
     K3 crp_bwd_pass           back-substitute, all levels
-    K4 crp_root               invert the root block (``crp_factor``)
-    K5 crp_factor_level       factor one level (no rhs)
+    K5 crp_factor_pass        factor alone (K1 with no rhs), all levels,
+                              then invert the root block
 
-K1, K2 and K3 run a whole pass in one launch, so a factor + solve is two
-launches (K1, K3) and a solve with a stored factor two (K2, K3).  K5 runs
-one launch per level, with the even/odd split and the one-block shifts
-between levels in plain torch, and K4 after it.  Each wrapper below
-launches its kernel for a CUDA tensor and uses its plain PyTorch twin
-(same elimination order, same unrolled-Cholesky pivots) for a CPU tensor;
-nothing else selects between them.  Each counts its launches in
-``<wrapper>.launches``.
+Each runs a whole pass in one launch, so a factor + solve is two launches
+(K1, K3), a solve with a stored factor two (K2, K3) and a factor alone one
+(K5).  Each wrapper below launches its kernel for a CUDA tensor and uses
+its plain PyTorch twin (same elimination order, same unrolled-Cholesky
+pivots) for a CPU tensor; nothing else selects between them.  Each counts
+its launches in ``<wrapper>.launches``.
 
 Public API (batch-first): :func:`crp_factor`, :func:`crp_factor_solve`,
 :func:`crp_solve`, :func:`crp_pad_rhs`.  Non-SPD pivots surface as NaN in
@@ -156,7 +154,7 @@ def _mm_nt(A, B):
 
 
 def factor_level_plain(Mo, Me, OL, OR):
-    """Twin of K5: one level's factor -> (Minv, Mhalf, Onext, S)."""
+    """One level of K5: the level's factor -> (Minv, Mhalf, Onext, S)."""
     Minv = _spd_inverse_slab(Mo)
     MinvOR = _mm(Minv, OR)
     Mhalf = Me - _mm(OL, _mm_nt(Minv, OL))
@@ -204,6 +202,23 @@ def factor_fwd_pass_plain(M, O, F, Bb):
     return levels, stack, root_inv, _mm(root_inv, F)
 
 
+def factor_pass_plain(M, O, Bb):
+    """Twin of K5: every level's factor over the slabs M, O
+    (11, 11, n_pad*B), no rhs -> (levels, root_inv): per level (Minv, OL,
+    OR), then the root block's inverse (11, 11, B)."""
+    levels = []
+    p = M.shape[2] // Bb
+    while p > 1:
+        Me, Mo = _split_oe(M, Bb)
+        OL, OR = _split_oe(O, Bb)
+        Minv, Mhalf, Onext, S = factor_level_plain(Mo, Me, OL, OR)
+        M = (Mhalf - _shift_fwd(S, Bb)).contiguous()
+        O = Onext
+        levels.append((Minv, OL, OR))
+        p //= 2
+    return levels, root_plain(M)
+
+
 def fwd_pass_plain(levels, root_inv, f, Bb):
     """Twin of K2: eliminate the rhs slab f (11, m, n_pad*B) level by level
     against a stored factor -> (stack, x): per level the blocks fo the solve
@@ -227,7 +242,8 @@ def bwd_pass_plain(levels, stack, x, Bb):
 
 
 def root_plain(A):
-    """Twin of K4: the inverse of the SPD root blocks A (11, 11, B)."""
+    """The root step of K1 and K5: the inverse of the SPD root blocks A
+    (11, 11, B)."""
     return _spd_inverse_slab(A)
 
 
@@ -247,16 +263,6 @@ def _check_device(name, ts):
             raise TypeError(f"{name}: float32 only, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")
-
-
-def _check(name, blocks):
-    """Validate the (11, 11, L) slabs handed to a kernel; returns L."""
-    L = blocks[0].shape[2]
-    _check_device(name, blocks)
-    for t in blocks:
-        if t.shape != (_NB, _NB, L):
-            raise ValueError(f"{name}: bad slab shape {tuple(t.shape)}")
-    return L
 
 
 def _ptr(t):
@@ -316,19 +322,30 @@ def crp_factor_fwd_pass(M, O, F):
     return levels, stack, root_inv, x
 
 
-def crp_factor_level(Mo, Me, OL, OR):
-    """K5 (replaces crkern.py:_factor_kernel).  Slabs (11, 11, L) ->
-    (Minv, Mhalf, Onext, S)."""
-    if Mo.device.type == "cpu":
-        return factor_level_plain(Mo, Me, OL, OR)
-    L = _check("crp_factor_level", [Mo, Me, OL, OR])
-    outs = [torch.empty_like(Mo) for _ in range(4)]
+def crp_factor_pass(M, O):
+    """K5 (replaces crkern.py:_factor_kernel at every level, then
+    _root_kernel).  Batch-first M, O (B, n_pad, 11, 11), n_pad a power of
+    two -> (levels, root_inv) as :func:`factor_pass_plain`."""
+    Bb = M.shape[0]
+    if M.device.type == "cpu":
+        return factor_pass_plain(_to_slab(M), _to_slab(O), Bb)
+    name = "crp_factor_pass"
+    n_pad = M.shape[1]
+    blk = (Bb, n_pad, _NB, _NB)
+    _check_shapes(name, [(M, blk), (O, blk)])
+    n_levels = _levels_of(n_pad)
+    new = lambda h: torch.empty(_NB, _NB, h * Bb, dtype=M.dtype, device=M.device)
+    levels = [(new(h), new(h), new(h))
+              for h in (n_pad >> (l + 1) for l in range(n_levels))]
+    root_inv = new(1)
     lib = _build.load_library()
-    code = lib.crp_factor_level(*map(_ptr, (Mo, Me, OL, OR)), *map(_ptr, outs),
-                                L, _stream(Mo))
-    crp_factor_level.launches += 1
-    _build.check(lib, code, "crp_factor_level")
-    return tuple(outs)
+    code = lib.crp_factor_pass(
+        _ptr(M), _ptr(O), *(_ptr_array([lv[i] for lv in levels])
+                            for i in range(3)),
+        _ptr(root_inv), Bb, n_pad, _stream(M))
+    crp_factor_pass.launches += 1
+    _build.check(lib, code, name)
+    return levels, root_inv
 
 
 def _factor_pairs(levels, Bb, n_pad):
@@ -394,22 +411,7 @@ def crp_bwd_pass(levels, stack, x):
     return X
 
 
-def crp_root(A):
-    """K4 (replaces crkern.py:_root_kernel for :func:`crp_factor`).  The SPD
-    root blocks A (11, 11, L) -> A^-1."""
-    if A.device.type == "cpu":
-        return root_plain(A)
-    L = _check("crp_root", [A])
-    Rinv = torch.empty_like(A)
-    lib = _build.load_library()
-    code = lib.crp_root(_ptr(A), _ptr(Rinv), L, _stream(A))
-    crp_root.launches += 1
-    _build.check(lib, code, "crp_root")
-    return Rinv
-
-
-KERNELS = (crp_factor_fwd_pass, crp_fwd_pass, crp_bwd_pass, crp_root,
-           crp_factor_level)
+KERNELS = (crp_factor_fwd_pass, crp_fwd_pass, crp_bwd_pass, crp_factor_pass)
 for _k in KERNELS:
     _k.launches = 0
 
@@ -417,26 +419,6 @@ for _k in KERNELS:
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
-
-
-# ---------------------------------------------------------------------------
-# level drivers (slab space)
-# ---------------------------------------------------------------------------
-
-
-def _factor_slab(M, O, Bb):
-    """Factor only.  Returns (levels, root_inv) in slab space."""
-    levels = []
-    p = M.shape[2] // Bb
-    while p > 1:
-        Me, Mo = _split_oe(M, Bb)
-        OL, OR = _split_oe(O, Bb)
-        Minv, Mhalf, Onext, S = crp_factor_level(Mo, Me, OL, OR)
-        M = (Mhalf - _shift_fwd(S, Bb)).contiguous()
-        O = Onext
-        levels.append((Minv, OL, OR))
-        p //= 2
-    return levels, crp_root(M)
 
 
 # ---------------------------------------------------------------------------
@@ -477,11 +459,11 @@ def _pad_chain(M, O):
 
 
 def crp_factor(M, O):
-    """Factor B chains: ``M``, ``O`` (B, n, b, b) with ``O[:, i]`` coupling
-    x_i to x_{i+1}.  Returns ``(levels, root_inv)``, the factor in slab
-    layout, opaque to callers, for :func:`crp_solve`."""
+    """Factor B chains (K5): ``M``, ``O`` (B, n, b, b) with ``O[:, i]``
+    coupling x_i to x_{i+1}.  Returns ``(levels, root_inv)``, the factor in
+    slab layout, opaque to callers, for :func:`crp_solve`."""
     M, O, _ = _pad_chain(M, O)
-    levels, root_inv = _factor_slab(_to_slab(M), _to_slab(O), M.shape[0])
+    levels, root_inv = crp_factor_pass(M.contiguous(), O.contiguous())
     return tuple(levels), root_inv
 
 

@@ -49,8 +49,8 @@ def make_grouped_solver(can: CanonicalNLP, kkt_solve: Callable,
 
     ``group_insts``: one Instance per ``group_size`` slice of ``v0s``
     (N, n); ``insts``: the per-lane Instances (a sequence of N, or None for
-    ``group_insts[i // group_size]``) — drain lanes that share an Instance
-    object share drain chunks.  ``p1``/``p2`` are the dive/endgame params
+    ``group_insts[i // group_size]``).  The unconverged lanes drain in
+    chunks of ``drain_size`` in index order, whatever their Instances.  ``p1``/``p2`` are the dive/endgame params
     (``p2.max_iter`` = the group cap), ``p2_drain`` the drain params
     (``max_iter`` = the full per-lane budget).  In the two-body program the
     dive runs exactly ``n1`` iterations and ``exit_df`` is ignored.
@@ -105,21 +105,29 @@ def make_grouped_solver(can: CanonicalNLP, kkt_solve: Callable,
         if len(idx):
             states = ALMState(*[torch.cat(xs) for xs in
                                 zip(*[o.state for o in outs])])
-            buckets: dict = {}
-            for i in idx:
-                buckets.setdefault(id(insts[i]), (insts[i], []))[1].append(i)
-            for inst, lanes in buckets.values():
-                for k0 in range(0, len(lanes), DB):
-                    sel = np.asarray(lanes[k0:k0 + DB])
-                    # Pad the chunk to DB lanes with lane 0 (read back: sel only).
-                    pad = np.concatenate([sel, np.zeros(DB - len(sel), int)])
+            # Chunks of DB unconverged lanes in index order, as the
+            # reference takes them.  A chunk runs one padded drain per
+            # Instance object among its lanes: a lane's result does not
+            # depend on the lanes beside it (converged lanes are frozen by
+            # mask, the exit check is per lane).
+            for k0 in range(0, len(idx), DB):
+                sel = idx[k0:k0 + DB]
+                runs: dict = {}
+                for i in sel:
+                    runs.setdefault(id(insts[i]), (insts[i], []))[1].append(i)
+                for inst, lanes in runs.values():
+                    # Pad to DB lanes with the run's first lane (read back:
+                    # its own lanes only).
+                    pad = np.asarray(lanes + [lanes[0]] * (DB - len(lanes)))
                     pad_t = torch.as_tensor(pad, device=dev)
                     sti = ALMState(*[x[pad_t] for x in states])
                     od = run_drain(inst, sti, p1, p2_drain, n_max, xdf)
-                    m = len(sel)
+                    m = len(lanes)
+                    own = pad[:m]
                     d = [getattr(od, k)[:m].cpu().numpy() for k in _FIELDS]
-                    conv[sel], viol[sel], fs[sel], its[sel], kks[sel], vs[sel] = d
-                    drain_iters += max(0, int(d[3].max()) - cap1)
+                    (conv[own], viol[own], fs[own], its[own], kks[own],
+                     vs[own]) = d
+                drain_iters += max(0, int(its[sel].max()) - cap1)
         return GroupedResult(conv, viol, fs, its, kks, vs, group_iters,
                              drain_iters)
 

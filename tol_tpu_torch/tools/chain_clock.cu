@@ -1,12 +1,13 @@
-// clock64 traces of the sequential-chain kernels K6 and K8, and the latency
-// of the operations on their chain, for tools/chain_clock.py.
+// clock64 traces of the sequential-chain kernels K6-K8, and the latency of
+// the operations on their chain, for tools/chain_clock.py.
 //
-// - old_k6 / old_k8: the K6 and K8 kernels of the second slice (13 warps
-//   share 32 lanes' steps column by column; one thread per lane), copied
-//   from that version of chainkern.cu with clock stamps between phases.
-// - pass_k6 / pass_k8: the kernels that ship (crk::chain_factor_pass,
-//   crk::back_sub_pass) run by a team whose mark() stamps the clock after
-//   every barrier.
+// - old_k6 / old_k7 / old_k8: the K6, K7 and K8 kernels of the second slice
+//   (K6: 13 warps share 32 lanes' steps column by column; K7, K8: one
+//   thread per lane), copied from that version of chainkern.cu with clock
+//   stamps between phases or steps.
+// - pass_k6 / pass_k7 / pass_k8: the kernels that ship
+//   (crk::chain_factor_pass, crk::rhs_forward_pass, crk::back_sub_pass) run
+//   by a team whose mark() stamps the clock after every barrier.
 // - latency: dependent chains of one operation on one thread.
 // Stamps are taken by thread 0 of thread block 0 (old K6: the first thread
 // of warp 0 and of the Cholesky warp) and summed over the chain steps.  A
@@ -147,12 +148,63 @@ old_k8_kernel(const float* __restrict__ tR, const float* __restrict__ t2,
   }
 }
 
+// old K7 (one thread per lane, 32 lanes a block, chain_rhs_forward_block
+// on every step; launched without a synchronise, so that CUDA events time
+// it): out[0] the cycles summed over the steps (stamped when the
+// step's rcorr is consumed).  kShared: the same steps with every operand
+// read from shared memory, step 0's operands of the lane staged there once
+// (tr to a shared scratch): what the steps take without waiting on device
+// memory.
+template <bool kShared>
+__global__ void __launch_bounds__(kLanes)
+old_k7_kernel(const float* __restrict__ Dinv, const float* __restrict__ O,
+              const float* __restrict__ tRw, const float* __restrict__ r,
+              float* __restrict__ tr, int T, int nB, long B,
+              long long* __restrict__ out) {
+  extern __shared__ float sm[];
+  const long b = (long)blockIdx.x * kLanes + threadIdx.x;
+  if (b >= B) return;
+  float* acc = sm + threadIdx.x;          // entry p at [p * kLanes]
+  float* ops = acc + nB * kLanes;         // Dinv, O, tRw, r, tr of step 0
+  float* sO = ops + NB2 * kLanes;
+  float* sW = sO + NB2 * kLanes;
+  float* sr = sW + NB * nB * kLanes;
+  float* st = sr + NB * kLanes;
+  for (int p = 0; p < nB; ++p) acc[p * kLanes] = 0.0f;
+  if (kShared) {
+    for (int e = 0; e < NB2; ++e) {
+      ops[e * kLanes] = Dinv[(long)e * B + b];
+      sO[e * kLanes] = O[(long)e * B + b];
+    }
+    for (int e = 0; e < NB * nB; ++e) sW[e * kLanes] = tRw[(long)e * B + b];
+    for (int e = 0; e < NB; ++e) sr[e * kLanes] = r[(long)e * B + b];
+  }
+  float rcorr[NB];
+#pragma unroll
+  for (int k = 0; k < NB; ++k) rcorr[k] = 0.0f;
+  long long tot = 0;
+  for (int i = 0; i < T; ++i) {
+    const long long t0 = clock64();
+    if (kShared)
+      crk::chain_rhs_forward_block<float>(ops, sO, sW, sr, st, kLanes, rcorr,
+                                          acc, kLanes, nB);
+    else
+      crk::chain_rhs_forward_block<float>(
+          Dinv + (long)i * NB2 * B + b, O + (long)i * NB2 * B + b,
+          tRw + (long)i * NB * nB * B + b, r + (long)i * NB * B + b,
+          tr + (long)i * NB * B + b, B, rcorr, acc, kLanes, nB);
+    tot += stamp_after(rcorr[NB - 1]) - t0;
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) out[0] = tot;
+}
+
 // The shipped passes with a team that stamps after every barrier: out[0]
 // is the clock at the start of thread 0 of block 0, out[k] at its k-th
 // mark.
 // kChainOut, 2 kChainOut: when thread 0 of block 0 has finished its part of
-// invert (the chain) and when the first thread past the chain's warps has
-// finished its items, in the step whose next mark is at the same index.
+// invert or rhs_chain (the chain) and when the first thread past the
+// chain's warps has finished its items, in the step whose next mark is at
+// the same index; 3 kChainOut: when that thread started them.
 constexpr int kChainOut = 1024;
 template <bool kApart>
 struct TraceTeamT : crk::BlockChainTeam {
@@ -172,12 +224,22 @@ struct TraceTeamT : crk::BlockChainTeam {
     if (blockIdx.x == 0 && t == 0) out[kChainOut + n] = clock64();
 #endif
   }
+  template <typename T, typename Ops, typename Rv, typename Rc>
+  __host__ __device__ void rhs_chain(int t, int ng, int w, long wst, Ops&& ops,
+                                     Rv&& rv, Rc&& rc) const {
+    crk::BlockChainTeam::rhs_chain<T>(t, ng, w, wst, ops, rv, rc);
+#ifdef __CUDA_ARCH__
+    if (blockIdx.x == 0 && t == 0) out[kChainOut + n] = clock64();
+#endif
+  }
   // kApart: the chain's part first, then a barrier, then the rest on all
   // threads (the chain without the rest beside it; the results are the
   // same).
   template <typename FA, typename FB>
   __host__ __device__ void each_split(int na, FA&& fa, int nb, FB&& fb) const {
 #ifdef __CUDA_ARCH__
+    if (blockIdx.x == 0 && (int)threadIdx.x == na)
+      out[3 * kChainOut + n] = clock64();
     if (kApart) {
       if ((int)threadIdx.x < na) fa(threadIdx.x);
       __syncthreads();
@@ -222,6 +284,23 @@ pass_k6_apart_kernel(const float* __restrict__ M, const float* __restrict__ O,
   if (blockIdx.x == 0 && threadIdx.x == 0) out[0] = clock64();
   crk::chain_factor_pass<float>(team, M, O, R, Dinv, t2, tR, S, T, nC, B,
                                 (long)blockIdx.x * G, G, sm);
+}
+
+// kApart: the chain, a barrier, then the rest (the chain without the
+// copies beside it).
+template <int G, bool kApart>
+__global__ void __launch_bounds__(512, 1)
+pass_k7_kernel(const float* __restrict__ Dinv, const float* __restrict__ O,
+               const float* __restrict__ tRw, const float* __restrict__ r,
+               float* __restrict__ tr, float* __restrict__ sb, int T, int nB,
+               long B, int C, long long* __restrict__ out) {
+  extern __shared__ float sm[];
+  TraceTeamT<kApart> team;
+  team.out = out;
+  team.n = 1;
+  if (blockIdx.x == 0 && threadIdx.x == 0) out[0] = clock64();
+  crk::rhs_forward_pass<float>(team, Dinv, O, tRw, r, tr, sb, T, nB, B,
+                               (long)blockIdx.x * G, G, C, sm);
 }
 
 // One warp inverts the SPD block A (G lanes of the same block) n times, each
@@ -427,6 +506,39 @@ int pass_k6_apart(const float* M, const float* O, const float* R, float* Dinv,
     pass_k6_apart_kernel<kG><<<(int)((B + G - 1) / G), threads, smem>>>(
         M, O, R, Dinv, t2, tR, S, T, nC, B, out);
     return (int)cudaDeviceSynchronize();
+  });
+}
+
+int old_k7(const float* Dinv, const float* O, const float* tRw, const float* r,
+           float* tr, int T, int nB, long B, int shared, long long* out) {
+  const long smem = (long)(nB + 2 * NB2 + NB * nB + 2 * NB) * kLanes * 4;
+  auto run = [&](auto kernel) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<(int)((B + kLanes - 1) / kLanes), kLanes, smem>>>(
+        Dinv, O, tRw, r, tr, T, nB, B, out);
+    return (int)cudaGetLastError();
+  };
+  return shared ? run(old_k7_kernel<true>) : run(old_k7_kernel<false>);
+}
+
+int pass_k7(const float* Dinv, const float* O, const float* tRw,
+            const float* r, float* tr, float* sb, int T, int nB, long B, int G,
+            int threads, int apart, long long* out) {
+  const int C = crk::rhs_forward_chunk(nB, G);
+  const long smem = G * crk::rhs_forward_floats(nB, C) * 4;
+  return by_group(G, [&](auto g) {
+    constexpr int kG = decltype(g)::value;
+    auto run = [&](auto kernel) {
+      cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+      kernel<<<(int)((B + G - 1) / G), threads, smem>>>(
+          Dinv, O, tRw, r, tr, sb, T, nB, B, C, out);
+      return (int)cudaDeviceSynchronize();
+    };
+    return apart ? run(pass_k7_kernel<kG, true>) : run(pass_k7_kernel<kG, false>);
   });
 }
 

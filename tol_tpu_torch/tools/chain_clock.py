@@ -1,16 +1,20 @@
-"""Where a chain step of K6 and K8 spends its cycles (clock64 traces).
+"""Where a chain step of K6-K8 spends its cycles (clock64 traces).
 
     python3 -m tol_tpu_torch.tools.chain_clock [--group 2 --threads 256 ...]
 
 Builds ``tools/chain_clock.cu`` with the kernels' nvcc flags and runs, on
-128 lanes of T = 100 chain blocks at border width 12 (K6) and 13 (K8),
+128 lanes of T = 100 chain blocks at border width 12 (K6, K7) and 13 (K8),
 float32, the seeded chains of ``chip_smoke.py``:
 
-- the K6 and K8 of the second slice with clock stamps between their phases
-  (K6: Cholesky, inverse columns, [O | R~] columns and the three barriers;
+- the K6, K7 and K8 of the second slice with clock stamps between their
+  phases or steps (K6: Cholesky, inverse columns, [O | R~] columns and the
+  three barriers; K7: a whole step, and the same steps with their operands
+  in shared memory, so that the difference is the wait on device memory;
   K8: the a-term, the product with t2, the stores);
 - the shipped passes with stamps after every barrier (K6: P1 Cholesky and
-  inverse, P2 t2, P3 next D~ and tR; K8: staging and a-terms, the chain);
+  inverse, P2 t2, P3 next D~ and tR; K7: per chunk of steps, the chain and
+  the other threads' border sums, tr stores and copies; K8: staging and
+  a-terms, the chain);
 - the latency of one link of a dependent chain of fp32 adds, FMAs,
   correctly rounded square roots and IEEE quotients, and of one 11x11
   ``chol_lower`` and ``chol_lower`` + ``inverse_column`` on one thread.
@@ -59,6 +63,8 @@ def load(handle):
     so = ctypes.CDLL(lib)
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
     so.old_k6.argtypes = [P] * 7 + [I, I, L, P]
+    so.old_k7.argtypes = [P] * 5 + [I, I, L, I, P]
+    so.pass_k7.argtypes = [P] * 6 + [I, I, L, I, I, I, P]
     so.old_k8.argtypes = [P] * 4 + [I, I, L, P]
     so.pass_k6.argtypes = [P] * 7 + [I, I, L, I, I, P]
     so.pass_k6_apart.argtypes = [P] * 7 + [I, I, L, I, I, P]
@@ -74,7 +80,7 @@ def _check(code, what):
         raise RuntimeError(f"{what}: CUDA error {code}")
 
 
-def run(torch, so, G6, th6, G8, th8):
+def run(torch, so, G6, th6, G7, th7, G8, th8):
     """The traces and latencies, as one record (cycles)."""
     from tol_tpu_torch.ops import chainkern as ch
     dev = torch.device("cuda")
@@ -94,7 +100,7 @@ def run(torch, so, G6, th6, G8, th8):
     coef = torch.randn(nB + 1, 1, B, generator=gen, device=dev)
     x = torch.empty(T, NB, B, device=dev)
     ptr = lambda ts: [t.data_ptr() for t in ts]
-    rec = dict(B=B, T=T, nC_k6=nB, nC_k8=nB + 1)
+    rec = dict(B=B, T=T, nC_k6=nB, nB_k7=nB, nC_k8=nB + 1)
 
     cyc = torch.zeros(64, dtype=torch.int64, device=dev)
     for _ in range(2):      # the second run is recorded
@@ -107,6 +113,38 @@ def run(torch, so, G6, th6, G8, th8):
         who: {n: c[w * 7 + k] / T for k, n in enumerate(names)}
         | {"loop": c[w * 7 + 6] / T}
         for w, who in enumerate(["warp_0", "cholesky_warp"])}
+    r = torch.randn(T, NB, 1, B, generator=gen, device=dev)
+    tr, sb = torch.empty_like(r), torch.empty(nB, 1, B, device=dev)
+    k7 = {}
+    for shared in (0, 1):
+        cyc.zero_()
+        for _ in range(2):
+            _check(so.old_k7(*ptr([Dinv, O, tR, r, tr]), T, nB, B, shared,
+                             cyc.data_ptr()), "old_k7")
+        torch.cuda.synchronize()
+        k7["operands_in_shared_memory" if shared else "step"] = cyc[0].item() / T
+    k7["waiting_on_device_memory"] = (k7["step"]
+                                      - k7["operands_in_shared_memory"])
+    rec["old_k7_cycles_per_step"] = k7
+    # the old K7's time by CUDA events, its operands warm in the L2 from the
+    # run before, and cold (a 128 MiB write before each run)
+    flush = torch.empty(32 << 20, device=dev)
+    ms = {}
+    for cold in (False, True):
+        total = 0.0
+        for _ in range(10):
+            if cold:
+                flush.zero_()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            _check(so.old_k7(*ptr([Dinv, O, tR, r, tr]), T, nB, B, 0,
+                             cyc.data_ptr()), "old_k7")
+            end.record()
+            torch.cuda.synchronize()
+            total += start.elapsed_time(end)
+        ms["cold_l2" if cold else "warm"] = total / 10
+    rec["old_k7_ms"] = ms
     cyc.zero_()
     for _ in range(2):
         _check(so.old_k8(*ptr([tRc, t2, coef, x]), T, nB + 1, B,
@@ -115,7 +153,7 @@ def run(torch, so, G6, th6, G8, th8):
     rec["old_k8_cycles_per_step"] = dict(
         a_term=c[0] / T, t2_product=c[1] / T, stores=c[2] / T, loop=c[3] / T)
 
-    marks = torch.zeros(3 * 1024, dtype=torch.int64, device=dev)
+    marks = torch.zeros(4 * 1024, dtype=torch.int64, device=dev)
     for _ in range(2):
         _check(so.pass_k6(*ptr([M, O, W] + outs6), T, nB, B, G6, th6,
                           marks.data_ptr()), "pass_k6")
@@ -143,6 +181,31 @@ def run(torch, so, G6, th6, G8, th8):
         P1_invert_thread_0=sum(m[1024 + 2 + 3 * i] - m[1 + 3 * i]
                                for i in range(T)) / T,
         step=(m[1 + 3 * T] - m[1]) / T)
+
+    def k7(G, th, apart):
+        """Cycles of the K7 pass: per step on the chain (thread 0) and on the
+        first thread past the chain's warps (border sums, tr stores,
+        copies), per step in all, and the first chunks one by one."""
+        marks.zero_()
+        for _ in range(2):
+            _check(so.pass_k7(*ptr([Dinv, O, tR, r, tr, sb]), T, nB, B, G, th,
+                              apart, marks.data_ptr()), "pass_k7")
+        m = marks.tolist()
+        nc = next(c for c in range(T + 1) if m[2 + c] == 0)   # chunks
+        chain = [m[1024 + 2 + c] - m[1 + c] for c in range(nc)]
+        rest = [m[2048 + 2 + c] - m[1 + c] for c in range(nc)]
+        return dict(
+            group=G, threads=th, chain_apart=bool(apart), chunks=nc,
+            prologue=m[1] - m[0], chain_per_step=sum(chain) / T,
+            rest_first_thread_per_step=sum(rest) / T,
+            step=(m[1 + nc] - m[1]) / T,
+            border_tail=m[2048 + 2 + nc] - m[1 + nc],
+            first_chunks=[dict(chunk=m[2 + c] - m[1 + c], chain=chain[c],
+                               rest_start=m[3072 + 2 + c] - m[1 + c],
+                               rest=rest[c]) for c in range(min(nc, 3))])
+
+    rec["k7_pass"] = k7(G7, th7, 0)
+    rec["k7_pass_chain_apart"] = k7(G7, th7, 1)
     marks.zero_()
     for _ in range(2):
         _check(so.pass_k8(*ptr([tRc, t2, coef, x]), T, nB + 1, B, G8, th8,
@@ -185,6 +248,8 @@ def main(argv=None) -> int:
     ap.add_argument("--group", type=int, default=None,
                     help="K6 lanes per block (default: the shipped one)")
     ap.add_argument("--threads", type=int, default=None)
+    ap.add_argument("--k7-group", type=int, default=None)
+    ap.add_argument("--k7-threads", type=int, default=None)
     ap.add_argument("--k8-group", type=int, default=None)
     ap.add_argument("--k8-threads", type=int, default=None)
     args = ap.parse_args(argv)
@@ -197,6 +262,7 @@ def main(argv=None) -> int:
     so, ptxas = load(start_build())
     rec = dict(tool="chain_clock", **run(
         torch, so, args.group or ch.K6_GROUP, args.threads or ch.K6_THREADS,
+        args.k7_group or ch.K7_GROUP, args.k7_threads or ch.K7_THREADS,
         args.k8_group or ch.K8_GROUP, args.k8_threads or ch.K8_THREADS))
     rec["ptxas"] = [ln.split("info    :")[-1].strip()
                     for ln in ptxas.splitlines()

@@ -8,11 +8,14 @@ earlier commit unpacked with ``git archive <commit> | tar -x -C build/other``
 then K3) and ``crp_solve`` (here K2, then K3; in a tree whose K2 runs one
 launch per level, those and a K4 launch in either solve) run on the same
 seeded chains at the S10 solve's shapes: 128 lanes of 100 blocks padded to
-128 (7 CR levels), 12 border columns and one solve column.  Then each
-tree's sequential-chain kernels run on seeded chains of the same length:
-K6 (``chain_factor``: Dinv, t2, tR, S) at S10's and G7's border widths 12
-and 14, and K8 (``chain_back_sub``: x) at 13 and 15, on operands of their
-own.  Each tree runs twice, in a process of its own: built with nvcc's
+128 (7 CR levels), 12 border columns and one solve column, and each
+tree's ``crp_factor`` (here K5, one launch; in a tree that factors level
+by level, K5 per level and K4) on the same chains: every level's Minv, OL,
+OR and the root inverse.  Then each tree's sequential-chain kernels run on
+seeded chains of the same length: K6 (``chain_factor``: Dinv, t2, tR, S)
+and K7 (``chain_rhs_forward``: tr, sb) at S10's and G7's border widths 12
+and 14, K7 on the factor of the plain twin of K6, and K8
+(``chain_back_sub``: x) at 13 and 15, on operands of their own.  Each tree runs twice, in a process of its own: built with nvcc's
 default, which may fuse a product and a sum into one FMA, and built with
 ``-fmad=false``, which rounds every product and every sum.  For each pair
 of runs the script prints, per output, how many entries differ in their
@@ -89,11 +92,22 @@ def _worker(tree, fmad, seed, save):
     torch.cuda.synchronize()
     out = {f"minv_level_{l}": lv[0] for l, lv in enumerate(levels)}
     out.update(root_inv=root_inv, X=X, x=x)
+    levels, root_inv = ck.crp_factor(M, O)
+    for l, lv in enumerate(levels):
+        for name, t in zip(("minv", "ol", "or"), lv):
+            out[f"crp_factor_{name}_level_{l}"] = t
+    out["crp_factor_root_inv"] = root_inv
     for nC in (12, 14):
         M, O, R, tR, t2, coef = (torch.as_tensor(a, device="cuda")
                                  for a in _chain_inputs(seed, nC))
         for name, t in zip(("Dinv", "t2", "tR", "S"),
                            ch._factor_eliminate_batched(M, O, R)):
+            out[f"chain_{name}_{nC}"] = t
+        Dinv, _, tRw, _ = ch.factor_eliminate_plain(M, O, R)
+        r = torch.as_tensor(np.random.default_rng(seed + 2 * nC).normal(
+            size=(T, NB, 1, B)).astype(np.float32), device="cuda")
+        for name, t in zip(("tr", "sb"),
+                           ch._rhs_forward_batched(Dinv, O, tRw, r)):
             out[f"chain_{name}_{nC}"] = t
         out[f"chain_x_{nC + 1}"] = ch._back_substitute_batched(tR, t2, coef)
     torch.cuda.synchronize()
