@@ -55,9 +55,22 @@ Phases, each of which must pass (any failure exits non-zero and prints no
                               gated.
              Every kernel that belongs to a path must be launched on it,
              and K5 (crp_factor) on none of them.
+   storm   — bench.py config 5 through the same grouped solver: S10 /
+             tempest / wind model 3 on the demo storm grid (order 2,
+             interp "auto": separable), a 4-trial endgame, group cap 175,
+             128 lanes, gated against ``tests/golden_storm_ts100.npy``
+             (>= 90% of the lanes must pass).
+   replan  — bench.py config 4 through the mission layer: a cold G7 /
+             skywalker leg of 128 seed lanes in 48-iteration slices, then
+             ``REPLANS`` goals drawn as bench.py draws them, each
+             warm-started and stitched; every leg must converge.
+   cli     — ``python -m tol_tpu_torch 0 0 0 0 -100 0 100 tempest S10 --ts
+             24`` in a subprocess with no ``--device``: must exit 0 and
+             write a converged document.
 5. profile — one dive (crp and sequential) and one endgame iteration of 128
-             lanes under torch.profiler: host wall, device busy time and
-             idle share, the hand-written kernels' share, kernel launches.
+             lanes under torch.profiler, and one storm endgame iteration:
+             host wall, device busy time and idle share, the hand-written
+             kernels' share, kernel launches.
 
 The last lines are the card's name and power limit, the ``kernels`` JSON
 and finally
@@ -89,6 +102,8 @@ NB = 11                 # node block size
 TS = 100                # collocation intervals of every solve = chain blocks
 B_LANES = 128           # lanes per group / drain chunk
 S10_LANES = 256         # lanes of the S10 crp solve: two groups
+STORM_LANES = 128       # lanes of the storm solve: one group plus drain
+REPLANS = 3             # warm replans after the cold leg (bench.py: 9)
 LEVELS = [64, 32, 16, 8, 4, 2, 1]   # CR level widths h for T=100 -> 128
 TOL_REL = 1e-4          # kernel vs twin, relative max-norm, float32
 TOL_CHAINS = 1e-3       # chain solves vs the dense yardstick, relative
@@ -725,28 +740,50 @@ def _bench_params(torch, ALMParams, dev, **kw):
                      max_iter=torch.tensor(mi, dtype=torch.int32, device=dev))
 
 
-# bench.py's constants per mission: dive length n1, group cap, budget, the
-# endgame numerics on top of _bench_params, the seed of the lane noise.
+# bench.py's constants per configuration: the mission, dive length n1,
+# group cap, budget, the endgame numerics on top of _bench_params, the seed
+# of the lane noise, the lanes of bench.py's run; "storm" is config 5
+# (wind model 3 on the demo storm grid, order 2, an endgame of 4 Armijo
+# trials, bench.py:486-580).
 MISSIONS = {
-    "S10": dict(aircraft="tempest", n1=90, cap=145, budget=250, noise_seed=0,
+    "S10": dict(mission="S10", aircraft="tempest", n1=90, cap=145,
+                budget=250, noise_seed=0,
                 endgame=dict(mu_init=6e-5, kappa_inner=2.0, prox=2.5e-3),
-                reference="golden_s10_ts100.npy"),
-    "G7": dict(aircraft="skywalker", n1=40, cap=360, budget=600, noise_seed=1,
+                reference="golden_s10_ts100.npy", bench_lanes=1024),
+    "G7": dict(mission="G7", aircraft="skywalker", n1=40, cap=360,
+               budget=600, noise_seed=1,
                endgame=dict(gamma_min=5e-6, prox=2.5e-3, mu_init=6e-5,
                             kappa_inner=2.0, gamma_shrink=0.12),
-               reference="g7_bestknown_ts100.npy"),
+               reference="g7_bestknown_ts100.npy", bench_lanes=256),
+    "storm": dict(mission="S10", aircraft="tempest", n1=90, cap=175,
+                  budget=250, noise_seed=3,
+                  endgame=dict(mu_init=6e-5, kappa_inner=2.0, prox=2.5e-3),
+                  reference="golden_storm_ts100.npy", bench_lanes=256,
+                  wind=3, endgame_ls=4),
 }
+STORM_DATUM = dict(east0=17400.0, north0=25800.0, up0=200.0)
 
 
-def make_mission(torch, mission, lanes, dev):
-    """The canonical problem of one mission at ts = TS in float32, bench.py's
-    parameter sets and ``lanes`` perturbed seeds."""
+def make_mission(torch, key, lanes, dev):
+    """The canonical problem of one configuration at ts = TS in float32,
+    bench.py's parameter sets and ``lanes`` perturbed seeds."""
     from tol_tpu_torch.api import make_problem
+    from tol_tpu_torch.io.storm import make_demo_storm_grid
+    from tol_tpu_torch.models.wind import WindConfig
     from tol_tpu_torch.solver.alm import ALMOptions, ALMParams
     from tol_tpu_torch.solver.canonical import canonicalize
 
-    spec = MISSIONS[mission]
-    nlp = make_problem(mission, aircraft=spec["aircraft"], ts=TS, wind_model=1,
+    spec = MISSIONS[key]
+    wind_model = spec.get("wind", 1)
+    wind = None
+    if wind_model == 3:
+        # the grid's origin and spacing in float32, as bench.py has them
+        # with x64 off
+        wind = WindConfig(model=3, order=2, interp="auto", **STORM_DATUM,
+                          grid=make_demo_storm_grid(dtype=torch.float32,
+                                                    device=dev))
+    nlp = make_problem(spec["mission"], aircraft=spec["aircraft"], ts=TS,
+                       wind_model=wind_model, wind=wind,
                        dtype=torch.float32, device=dev)
     can = canonicalize(nlp, scaling="auto")
     end = dict(tol=5e-3, feas_tol=1e-4, **spec["endgame"])
@@ -758,9 +795,9 @@ def make_mission(torch, mission, lanes, dev):
     ref = torch.tensor(np.load(os.path.join(HERE, "tests", spec["reference"])),
                        dtype=torch.float32, device=dev)
     return dict(
-        mission=mission, spec=spec, can=can,
-        opts=ALMOptions(max_iter=2000, dual_refine_k=4, max_ls=8,
-                        factor_reuse=1),
+        mission=spec["mission"], spec=spec, can=can, wind_model=wind_model,
+        opts=ALMOptions(max_iter=2000, dual_refine_k=4,
+                        max_ls=spec.get("endgame_ls", 8), factor_reuse=1),
         dive_opts=ALMOptions(max_iter=2000, dual_refine_k=0, max_ls=4,
                              factor_reuse=1),
         p2=_bench_params(torch, ALMParams, dev, max_iter=spec["cap"], **end),
@@ -801,9 +838,13 @@ def run_solve(torch, ck, ch, path, ctx, lanes, dive_chain, expect):
     feasible = res.constr_viol < 1e-4
     rec = dict(
         phase="solve", path=path, mission=ctx["mission"],
-        aircraft=spec["aircraft"], wind_model=1, ts=TS, dtype="float32",
+        aircraft=spec["aircraft"], wind_model=ctx["wind_model"], ts=TS,
+        dtype="float32",
         n=can.n, m=can.m, slacks=can.n_slack, lanes=lanes, group=B_LANES,
         drain=B_LANES, dive_chain=dive_chain, endgame_chain="crp",
+        endgame_trials=ctx["opts"].max_ls,
+        reduced=([f"lanes {spec['bench_lanes']} -> {lanes}"]
+                 if lanes < spec["bench_lanes"] else []),
         n1=spec["n1"], cap=spec["cap"], max_iter=spec["budget"],
         converged=int(res.converged.sum()), feasible=int(feasible.sum()),
         converged_and_feasible=int((res.converged & feasible).sum()),
@@ -862,6 +903,120 @@ def run_solves(torch, ck, ch, dev):
               ("dive_pallas", s10["dive_opts"], 0, "pallas", s10["p1"]),
               ("endgame", s10["opts"], 1, "crp", s10["p2"])]
     return by_path, (s10["can"], s10["v0s"][:B_LANES], bodies)
+
+
+def run_storm(torch, ck, ch, dev):
+    """The storm solve, bench.py config 5: S10 / tempest / wind model 3 on
+    the demo storm grid (order 2, interp "auto": separable at 384 cells),
+    gated as bench.py gates it against ``tests/golden_storm_ts100.npy``.
+    Returns (launches, profile context)."""
+    storm = make_mission(torch, "storm", STORM_LANES, dev)
+    rec, launches, _ = run_solve(torch, ck, ch, "storm", storm, STORM_LANES,
+                                 "crp", CR_PASS_KERNELS)
+    _require(rec["gated_pass_with_cost_gap"] >= 0.9 * STORM_LANES,
+             f"storm gate: {rec['gated_pass_with_cost_gap']}/{STORM_LANES} "
+             "lanes pass (< 90%)")
+    bodies = [("storm_endgame", storm["opts"], 1, "crp", storm["p2"])]
+    return launches, (storm["can"], storm["v0s"][:B_LANES], bodies)
+
+
+def run_replan(torch, ck, ch, dev):
+    """Warm replanning through the mission layer, bench.py config 4: a cold
+    G7 / skywalker leg of 128 seed lanes in 48-iteration slices, then
+    REPLANS goals drawn as bench.py draws them (``default_rng(7)``), each
+    warm-started and stitched to the previous leg's end.  Every leg must
+    converge.  Returns the launches of the whole phase."""
+    import math
+
+    from tol_tpu_torch.config import Goal, StitchState
+    from tol_tpu_torch.mission.mission import MissionConfig, default_leg_solver
+
+    mcfg = MissionConfig(aircraft="skywalker", ts=TS, wind_model=1,
+                         leg_max_iter=600, leg_ensemble=B_LANES,
+                         leg_chain="crp", leg_chunk=48, device=str(dev),
+                         dtype=torch.float32)
+    solve_leg = default_leg_solver(mcfg)
+    legs = []
+
+    def leg(goal, stitch=None):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        doc = solve_leg("G7", goal, stitch=stitch)
+        torch.cuda.synchronize()
+        legs.append(dict(ms=1e3 * (time.time() - t0),
+                         iterations=doc["iterations"],
+                         converged=doc["converged"],
+                         used_warm=doc["used_warm"],
+                         winner_lane=doc["winner_lane"]))
+        tr = doc["trajectory"]
+        _require(all(np.isfinite(tr[k]).all() for k in tr),
+                 "replan: non-finite trajectory")
+        return doc
+
+    _reset_launch_counts(ck, ch)
+    doc = leg(Goal(xg=0.0, yg=400.0, zg=0.0, rg=0.0))
+    rng = np.random.default_rng(7)
+    for _ in range(REPLANS):
+        ang = math.pi / 2 + math.radians(rng.uniform(-10, 10))
+        rng_d = 400.0 * (1.0 + rng.uniform(-0.1, 0.1))
+        tr = doc["trajectory"]
+        st = StitchState(*[tr[k][-1] for k in ("Va", "gam", "chi", "phi",
+                                               "CL", "dphi", "dCL", "T")])
+        doc = leg(Goal(xg=rng_d * math.cos(ang), yg=rng_d * math.sin(ang),
+                       zg=0.0, rg=0.0), st)
+    launches = _launch_counts(ck, ch)
+    warm_ms = [x["ms"] for x in legs[1:]]
+    rec = dict(
+        phase="replan", mission="G7", aircraft="skywalker", wind_model=1,
+        ts=TS, dtype="float32", ensemble=B_LANES, chunk=48, max_iter=600,
+        chain="crp", legs=legs, cold_leg_s=legs[0]["ms"] / 1e3,
+        replans=REPLANS,
+        p50_ms=float(np.percentile(warm_ms, 50)) if warm_ms else None,
+        p90_ms=float(np.percentile(warm_ms, 90)) if warm_ms else None,
+        converged=sum(x["converged"] for x in legs), legs_run=len(legs),
+        reduced=([f"replans 9 -> {REPLANS}"] if REPLANS < 9 else []),
+        launches=launches)
+    print(json.dumps(rec), flush=True)
+    _require(all(x["converged"] for x in legs),
+             f"replan: {rec['converged']}/{len(legs)} legs converged")
+    _require(all(launches[k] > 0 for k in CR_PASS_KERNELS),
+             f"replan: a kernel of the path was never launched: {launches}")
+    return launches
+
+
+def run_cli():
+    """The flagship loiter through the CLI in a subprocess, with no
+    --device: a 100 m ring centred 100 m south, ts=24.  It must exit 0 and
+    write a converged document."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "snopt_results.json")
+        cmd = [sys.executable, "-m", "tol_tpu_torch", "0", "0", "0", "0",
+               "-100", "0", "100", "tempest", "S10", "--ts", "24",
+               "--out", out]
+        t0 = time.time()
+        proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                              timeout=600,
+                              env={**os.environ, "PYTHONPATH": HERE})
+        wall = time.time() - t0
+        _require(proc.returncode == 0,
+                 f"cli: exit {proc.returncode}: {proc.stderr[-2000:]}")
+        with open(out) as f:
+            doc = json.load(f)
+    tr = doc["trajectory"]
+    radius = np.hypot(np.asarray(tr["x"]) + 100.0, np.asarray(tr["y"]))
+    rec = dict(phase="cli", command=" ".join(cmd[1:-2]), seconds=wall,
+               converged=doc["converged"], iterations=doc["iterations"],
+               kkt_err=doc["kkt_err"], final_cost=doc["FinalCost"],
+               dt=doc["dt"], nodes=len(tr["x"]),
+               loiter_radius_min=float(radius[1:].min()),
+               loiter_radius_max=float(radius[1:].max()),
+               status=proc.stdout.strip().splitlines()[-1])
+    print(json.dumps(rec), flush=True)
+    _require(doc["converged"] and len(tr["x"]) == 25
+             and all(np.isfinite(tr[k]).all() for k in tr),
+             "cli: the document is not a converged 24-step trajectory")
 
 
 # ---------------------------------------------------------------------------
@@ -987,9 +1142,21 @@ def main() -> int:
 
         t0 = time.time()
         solve_paths, ctx = run_solves(torch, ck, ch, dev)
-        by_path.update(solve_paths)
         print(json.dumps(dict(phase="solves", seconds=time.time() - t0)),
               flush=True)
+
+        t0 = time.time()
+        solve_paths["storm"], storm_ctx = run_storm(torch, ck, ch, dev)
+        print(json.dumps(dict(phase="storm_total",
+                              seconds=time.time() - t0)), flush=True)
+
+        t0 = time.time()
+        solve_paths["replan"] = run_replan(torch, ck, ch, dev)
+        print(json.dumps(dict(phase="replan_total",
+                              seconds=time.time() - t0)), flush=True)
+
+        run_cli()
+        by_path.update(solve_paths)
         # A kernel's launches: those of the solves; K5, which no solve
         # reaches, has those of the chains phase.
         for name, rec in records.items():
@@ -1000,6 +1167,7 @@ def main() -> int:
 
         t0 = time.time()
         prof = profile_iterations(torch, ck, ch, *ctx)
+        prof.update(profile_iterations(torch, ck, ch, *storm_ctx))
         print(json.dumps(dict(phase="profile", seconds=time.time() - t0,
                               lanes=B_LANES, **prof)), flush=True)
         card = _nvidia_smi("name,power.limit")

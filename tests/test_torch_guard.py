@@ -64,6 +64,25 @@ def test_entry_points_need_a_gpu_unless_told_otherwise():
     assert nlp.inst0.z_lo.device.type == "cpu"
 
 
+@pytest.mark.parametrize("args", [
+    ["0", "0", "0", "0", "-100", "0", "100", "tempest", "S10", "--ts", "8"],
+    ["mission", "--goal", "400,0,70,100", "--ts", "8"]])
+def test_the_cli_needs_a_gpu_unless_told_otherwise(args, tmp_path):
+    """python -m tol_tpu_torch raises before any solve when no CUDA device
+    is present and --device is not given."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    out = subprocess.run([sys.executable, "-m", "tol_tpu_torch", *args],
+                         cwd=ROOT, capture_output=True, text=True, timeout=300,
+                         env={**os.environ, "PYTHONPATH": ROOT})
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr
+    assert "Solving" not in out.stdout
+    from tol_tpu_torch.io.storm import make_demo_storm_grid
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_demo_storm_grid()
+
+
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
     """A wrapper takes its plain twin only for a CPU tensor; the launch
     checks refuse anything else that is not on the card

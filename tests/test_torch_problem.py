@@ -116,11 +116,13 @@ def test_wind_and_gradient_match(model):
 
 @pytest.mark.parametrize("model", [2, 3, 4, 5])
 def test_unported_wind_models_raise(model):
-    """Only the gridded storm field (model 3) is still unported; the others
-    evaluate, and the vortex is still at its core."""
+    """Every model is ported; the gridded storm field (model 3) raises
+    without a WindGrid, as tol_tpu's does (tests/test_torch_storm.py holds
+    it with one); the others evaluate, and the vortex is still at its
+    core."""
     cfg = twind.WindConfig(model=model, xth=17400.0, yth=25800.0)
     if model == 3:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="requires a WindGrid"):
             twind.wind_ned(cfg, torch.zeros(3))
         return
     w, g = twind.wind_with_gradient_ned(cfg, torch.zeros(2, 3,

@@ -7,6 +7,8 @@ writes in Pallas for the TPU are hand-written CUDA C++ for Hopper here
 (``tol_tpu_torch/csrc``), each with a plain PyTorch twin beside its wrapper
 (``tol_tpu_torch/ops/crkern.py``).
 
-The package imports torch and numpy only.  Entry points run on the CUDA
-device unless the caller passes ``device="cpu"``.
+The package imports torch and numpy (and scipy for the NetCDF storm
+reader).  Entry points run on the CUDA device unless the caller passes
+``device="cpu"`` (``--device cpu`` to the CLI, ``python -m
+tol_tpu_torch``).
 """

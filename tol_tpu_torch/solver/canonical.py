@@ -103,6 +103,15 @@ def default_scaling(nlp: CollocationNLP, dtype=None) -> Scaling:
     return Scaling(d_z=d_z, d_dt=d_dt, r_b=r_b, s_f=s_f)
 
 
+def unit_scaling(nlp: CollocationNLP, dtype=None) -> Scaling:
+    """The identity Scaling (every scale 1) on the problem's device."""
+    z_lo = nlp.inst0.z_lo
+    dtype = dtype or z_lo.dtype
+    ones = lambda *s: torch.ones(*s, dtype=dtype, device=z_lo.device)
+    return Scaling(d_z=ones(NUM_VARS), d_dt=ones(()), r_b=ones(nlp.nb),
+                   s_f=ones(()))
+
+
 @dataclasses.dataclass(frozen=True)
 class CanonicalNLP:
     nlp: CollocationNLP
