@@ -67,6 +67,24 @@ Phases, each of which must pass (any failure exits non-zero and prints no
    cli     — ``python -m tol_tpu_torch 0 0 0 0 -100 0 100 tempest S10 --ts
              24`` in a subprocess with no ``--device``: must exit 0 and
              write a converged document.
+   parallel — ``parallel.make_mesh()`` makes a world of one over NCCL;
+             ``sharded_batch_solve`` solves S10 / tempest at ts=24, 32
+             lanes, chain crp (K1-K3 through the mesh path), and must equal
+             the plain ``alm.solve`` of the same lanes bit for bit;
+             ``global_psum`` and ``global_stats_to_host`` over NCCL must
+             equal the local sum and the local tensor.
+   scaling — ``bench_scaling_torch``'s GPU batch curve at 128, 256 and 512
+             lanes, 8 fixed iterations each: instance-iterations per
+             second per batch.
+   entry   — ``graft_entry_torch.entry()`` on the card (the ts=100 S10 KKT
+             step over 8 lanes, chain cr) must give finite f, max|c| and v;
+             ``dryrun_multichip(1)``: three solver iterations over the mesh.
+   utils   — the s10 phase's final v and the parallel phase's v and y
+             round-trip ``save_solution`` / ``load_solution`` bit for bit;
+             the stage timer's report of the solve phases; one crp dive
+             step of 128 lanes under ``utils.profiling.trace``, whose
+             Chrome trace must name the K1-K3 kernels; that step's
+             ``program_flops``, the card's ``peak_flops()`` and the share.
 5. profile — one dive (crp and sequential) and one endgame iteration of 128
              lanes under torch.profiler, and one storm endgame iteration:
              host wall, device busy time and idle share, the hand-written
@@ -104,6 +122,12 @@ B_LANES = 128           # lanes per group / drain chunk
 S10_LANES = 256         # lanes of the S10 crp solve: two groups
 STORM_LANES = 128       # lanes of the storm solve: one group plus drain
 REPLANS = 3             # warm replans after the cold leg (bench.py: 9)
+PAR_TS = 24             # the parallel phase's sharded solve: ts, lanes and
+PAR_LANES = 32          # iteration budget (dive structure, endgame numerics)
+PAR_ITERS = 60
+SCALING_BATCHES = (128, 256, 512)   # the scaling phase's batch curve
+SCALING_ITERS = 8
+UTILS_STEPS = 5         # the utils phase's untraced window of dive steps
 LEVELS = [64, 32, 16, 8, 4, 2, 1]   # CR level widths h for T=100 -> 128
 TOL_REL = 1e-4          # kernel vs twin, relative max-norm, float32
 TOL_CHAINS = 1e-3       # chain solves vs the dense yardstick, relative
@@ -830,6 +854,7 @@ def run_solve(torch, ck, ch, path, ctx, lanes, dive_chain, expect):
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = _launch_counts(ck, ch)
+    ctx.setdefault("results", {})[path] = res
 
     _require(np.isfinite(res.v).all(), f"{path}: non-finite final v")
     _require(res.v.shape == (lanes, can.n),
@@ -865,7 +890,8 @@ def run_solve(torch, ck, ch, path, ctx, lanes, dive_chain, expect):
 
 
 def run_solves(torch, ck, ch, dev):
-    """Phase 4.  Returns (launches per path, profile context)."""
+    """Phase 4.  Returns (launches per path, profile context, the s10
+    solve's final v)."""
     by_path = {}
     s10 = make_mission(torch, "S10", S10_LANES, dev)
     rec, by_path["s10"], gap_crp = run_solve(
@@ -902,7 +928,8 @@ def run_solves(torch, ck, ch, dev):
     bodies = [("dive", s10["dive_opts"], 0, "crp", s10["p1"]),
               ("dive_pallas", s10["dive_opts"], 0, "pallas", s10["p1"]),
               ("endgame", s10["opts"], 1, "crp", s10["p2"])]
-    return by_path, (s10["can"], s10["v0s"][:B_LANES], bodies)
+    return (by_path, (s10["can"], s10["v0s"][:B_LANES], bodies),
+            s10["results"]["s10"].v)
 
 
 def run_storm(torch, ck, ch, dev):
@@ -1020,6 +1047,206 @@ def run_cli():
 
 
 # ---------------------------------------------------------------------------
+# phase 4b: the parallel layer, the scaling curve, the entry points, utils
+# ---------------------------------------------------------------------------
+
+def run_parallel(torch, ck, ch, dev):
+    """The sharded solve through a NCCL world of one, held bit for bit
+    against the plain solve of the same lanes.  Returns (launches of the
+    sharded solve, its result)."""
+    import torch.distributed as dist
+
+    from tol_tpu_torch.api import make_problem
+    from tol_tpu_torch.parallel import (global_psum, global_stats_to_host,
+                                        make_mesh, sharded_batch_solve)
+    from tol_tpu_torch.solver.alm import ALMOptions, ALMParams
+    from tol_tpu_torch.solver.alm import solve as alm_solve
+    from tol_tpu_torch.solver.canonical import canonicalize
+    from tol_tpu_torch.solver.kkt_condensed import make_condensed_kkt
+
+    t0 = time.time()
+    mesh = make_mesh()
+    _require(dist.get_backend() == "nccl" and dist.get_world_size() == 1
+             and mesh.shape == (1, 1) and mesh.device_type == "cuda",
+             f"parallel: not a NCCL world of one: {mesh}")
+    mesh_s = time.time() - t0
+    can = canonicalize(make_problem("S10", "tempest", ts=PAR_TS,
+                                    dtype=torch.float32, device=dev),
+                       scaling="auto")
+    lb, ub, fixed = can.bounds(can.nlp.inst0)
+    gen = torch.Generator(device="cpu").manual_seed(4)
+    dv = 0.01 * torch.randn(PAR_LANES, can.n, generator=gen).to(dev)
+    v0s = torch.where(fixed, lb, torch.minimum(torch.maximum(
+        can.initial_point() + dv, lb), ub))
+    kkt = make_condensed_kkt(can, refine=0, chain="crp")
+    opts = ALMOptions(max_iter=2000, dual_refine_k=0, max_ls=4)
+    p = _bench_params(torch, ALMParams, dev, max_iter=PAR_ITERS, tol=5e-3,
+                      feas_tol=1e-4, **MISSIONS["S10"]["endgame"])
+
+    def solve_batch(_, v):
+        return alm_solve(can, kkt, opts, v0=v, params=p)
+
+    _reset_launch_counts(ck, ch)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    res = sharded_batch_solve(mesh, solve_batch, None, v0s)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = _launch_counts(ck, ch)
+    plain = alm_solve(can, kkt, opts, v0=v0s, params=p)
+    same = {k: bool(torch.equal(getattr(res, k), getattr(plain, k)))
+            for k in ("v", "y", "zl", "zu", "f", "iterations", "converged",
+                      "kkt_err", "constr_viol")}
+    total = global_psum(mesh, res.constr_viol)
+    host_v = global_stats_to_host(res.v)
+    rec = dict(
+        phase="parallel", mission="S10", aircraft="tempest", wind_model=1,
+        ts=PAR_TS, dtype="float32", lanes=PAR_LANES, chain="crp",
+        backend=dist.get_backend(), world_size=dist.get_world_size(),
+        mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)), mesh_s=mesh_s,
+        max_iter=PAR_ITERS, converged=int(res.converged.sum()),
+        median_iters=float(res.iterations.float().median()),
+        wall_s=wall, bits_equal_plain_solve=same,
+        psum=float(total), local_sum=float(res.constr_viol.sum()),
+        stats_to_host_equal=bool(np.array_equal(host_v,
+                                                res.v.cpu().numpy())),
+        launches=launches,
+        note="NCCL over more than one rank is not run: one card")
+    print(json.dumps(rec), flush=True)
+    _require(all(same.values()),
+             f"parallel: the sharded solve differs from the plain one: {same}")
+    _require(float(total) == float(res.constr_viol.sum())
+             and rec["stats_to_host_equal"],
+             "parallel: the NCCL reductions differ from the local ones")
+    _require(np.isfinite(host_v).all(), "parallel: non-finite v")
+    _require(all(launches[k] > 0 for k in CR_PASS_KERNELS),
+             f"parallel: a kernel of the path was never launched: {launches}")
+    return launches, res
+
+
+def run_scaling(torch, ck, ch):
+    """bench_scaling_torch's single-card batch curve (GPU mode) in this
+    process, so the wrappers' counts see its launches."""
+    import bench_scaling_torch
+
+    _reset_launch_counts(ck, ch)
+    t0 = time.time()
+    out = bench_scaling_torch.main_gpu_batch_curve(SCALING_BATCHES,
+                                                   SCALING_ITERS)
+    launches = _launch_counts(ck, ch)
+    rates = out["detail"]["instance_iters_per_s"]
+    print(json.dumps(dict(phase="scaling", seconds=time.time() - t0,
+                          launches=launches, **out)), flush=True)
+    _require(all(r > 0 and np.isfinite(r) for r in rates.values())
+             and all(n == SCALING_ITERS
+                     for n in out["detail"]["iterations_run"].values()),
+             f"scaling: bad curve {out}")
+    _require(all(launches[k] > 0 for k in CR_PASS_KERNELS),
+             f"scaling: a kernel of the path was never launched: {launches}")
+    return launches
+
+
+def run_entry(torch):
+    """graft_entry_torch on the card: entry()'s step, then the dry run over
+    the mesh of the parallel phase's world."""
+    import graft_entry_torch
+
+    t0 = time.time()
+    fn, args = graft_entry_torch.entry()
+    f, max_c, v = fn(*args)
+    torch.cuda.synchronize()
+    step_s = time.time() - t0
+    t0 = time.time()
+    graft_entry_torch.dryrun_multichip(1)
+    dry_s = time.time() - t0
+    finite = {k: bool(torch.isfinite(x).all())
+              for k, x in (("f", f), ("max_c", max_c), ("v", v))}
+    print(json.dumps(dict(
+        phase="entry", lanes=int(v.shape[0]), n=int(v.shape[1]),
+        dtype=str(v.dtype), device=str(v.device), step_s=step_s,
+        f=f.tolist(), max_c=max_c.tolist(), finite=finite,
+        dryrun_multichip_1_s=dry_s)), flush=True)
+    _require(all(finite.values()) and v.device.type == "cuda"
+             and v.shape == (8, 1112),
+             f"entry: the step is not finite on the card: {finite}")
+
+
+def run_utils(torch, ck, ch, timer, s10_v, par, ctx):
+    """The utilities on the card: checkpoint round trip, the stage timer's
+    report, one crp dive step traced and its flops against the peak: over
+    the mean wall of an untraced window of the same step (the share a
+    user's solve reaches) and over the traced step's device busy time."""
+    import tempfile
+
+    from tol_tpu_torch.solver.alm import make_kernel
+    from tol_tpu_torch.solver.kkt_condensed import make_condensed_kkt
+    from tol_tpu_torch.utils import load_solution, save_solution, trace
+    from tol_tpu_torch.utils.flops import peak_flops, program_flops
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "s10.npz")
+        save_solution(path, s10_v, par.y, meta={"v_parallel": par.v})
+        v, y, meta = load_solution(path)
+        bits = dict(
+            s10_v=v.dtype == s10_v.dtype and v.tobytes() == s10_v.tobytes(),
+            parallel_y=y.tobytes() == par.y.cpu().numpy().tobytes(),
+            parallel_v=meta["v_parallel"].tobytes()
+            == par.v.cpu().numpy().tobytes())
+
+        can, v0s, bodies = ctx
+        name, opts, refine, chain, p = bodies[0]
+        _require(name == "dive" and chain == "crp", f"utils: body {name}")
+        kern = make_kernel(can, make_condensed_kkt(can, refine=refine,
+                                                   chain=chain),
+                           opts, can.nlp.inst0, v0s)
+        st = kern.init_state(p, p, False)
+        for _ in range(6):
+            st, _ = kern.substep(st, None, p, p, None)
+        torch.cuda.synchronize()
+        # the untraced window: the same step from the same state, repeated
+        t0 = time.time()
+        for _ in range(UTILS_STEPS):
+            kern.substep(st, None, p, p, None)
+        torch.cuda.synchronize()
+        step_s = (time.time() - t0) / UTILS_STEPS
+        with trace(os.path.join(tmp, "trace")) as prof:
+            t0 = time.time()
+            kern.substep(st, None, p, p, None)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        with open(prof.trace_path) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    named = {k: any(SYMBOLS[k] in n for n in names) for k in CR_PASS_KERNELS}
+    from torch.autograd import DeviceType
+    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA) / 1e3
+    flops = program_flops(lambda: kern.substep(st, None, p, p, None))
+    peak = peak_flops()
+    rate = flops / step_s
+    busy_rate = flops / (busy_ms / 1e3) if busy_ms else None
+    rec = dict(
+        phase="utils", checkpoint_bits_equal=bits,
+        stage_timer=timer.report().splitlines(),
+        step=dict(body="dive", chain="crp", lanes=int(v0s.shape[0]), ts=TS,
+                  untraced_steps=UTILS_STEPS, wall_ms=1e3 * step_s),
+        traced_step=dict(wall_ms=1e3 * wall, device_busy_ms=busy_ms or None,
+                         trace_names_kernels=named),
+        flops_per_step=flops, flops_per_s_over_wall=rate,
+        flops_per_s_over_device_busy=busy_rate,
+        peak_flops=peak, share_of_peak=rate / peak if peak else None,
+        share_of_peak_over_device_busy=(busy_rate / peak
+                                        if peak and busy_rate else None),
+        card=_nvidia_smi("name,power.limit"),
+        note=("aten flops by XLA's cost-analysis convention; the "
+              "hand-written kernels and library factorizations count none"))
+    print(json.dumps(rec), flush=True)
+    _require(all(bits.values()), f"utils: checkpoint bits differ: {bits}")
+    _require(all(named.values()),
+             f"utils: the trace does not name the kernels: {named}")
+    _require(flops > 0 and peak, f"utils: flops {flops}, peak {peak}")
+
+
+# ---------------------------------------------------------------------------
 # phase 5: where a solver iteration's time goes
 # ---------------------------------------------------------------------------
 
@@ -1084,15 +1311,19 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    import torch.distributed as dist
+
     from tol_tpu_torch.ops import _build
     from tol_tpu_torch.ops import chainkern as ch
     from tol_tpu_torch.ops import crkern as ck
     from tol_tpu_torch.tools import chain_clock
+    from tol_tpu_torch.utils import stage_timer
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.time()
+    timer = stage_timer()
     try:
         t0 = time.time()
         clock_build = chain_clock.start_build()
@@ -1141,21 +1372,36 @@ def main() -> int:
                               **chains)), flush=True)
 
         t0 = time.time()
-        solve_paths, ctx = run_solves(torch, ck, ch, dev)
+        with timer("solves"):
+            solve_paths, ctx, s10_v = run_solves(torch, ck, ch, dev)
         print(json.dumps(dict(phase="solves", seconds=time.time() - t0)),
               flush=True)
 
         t0 = time.time()
-        solve_paths["storm"], storm_ctx = run_storm(torch, ck, ch, dev)
+        with timer("storm"):
+            solve_paths["storm"], storm_ctx = run_storm(torch, ck, ch, dev)
         print(json.dumps(dict(phase="storm_total",
                               seconds=time.time() - t0)), flush=True)
 
         t0 = time.time()
-        solve_paths["replan"] = run_replan(torch, ck, ch, dev)
+        with timer("replan"):
+            solve_paths["replan"] = run_replan(torch, ck, ch, dev)
         print(json.dumps(dict(phase="replan_total",
                               seconds=time.time() - t0)), flush=True)
 
-        run_cli()
+        with timer("cli"):
+            run_cli()
+
+        t_new = time.time()
+        with timer("parallel"):
+            solve_paths["parallel"], par = run_parallel(torch, ck, ch, dev)
+        with timer("scaling"):
+            solve_paths["scaling"] = run_scaling(torch, ck, ch)
+        with timer("entry"):
+            run_entry(torch)
+        run_utils(torch, ck, ch, timer, s10_v, par, ctx)
+        print(json.dumps(dict(phase="new_phases_total",
+                              seconds=time.time() - t_new)), flush=True)
         by_path.update(solve_paths)
         # A kernel's launches: those of the solves; K5, which no solve
         # reaches, has those of the chains phase.
@@ -1174,6 +1420,9 @@ def main() -> int:
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
     print(json.dumps(dict(phase="total", seconds=time.time() - t_start)))
     print(card)
     print(json.dumps({"kernels": list(records.values())}))

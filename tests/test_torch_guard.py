@@ -14,10 +14,13 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "tol_tpu_torch")
 SMOKE = os.path.join(ROOT, "chip_smoke.py")
+# the JAX package's root scripts -> their ports
+ROOT_SCRIPTS = {"bench_scaling.py": "bench_scaling_torch.py",
+                "__graft_entry__.py": "graft_entry_torch.py"}
 
 
 def _port_sources():
-    out = [SMOKE]
+    out = [SMOKE] + [os.path.join(ROOT, f) for f in ROOT_SCRIPTS.values()]
     for d, _, files in os.walk(PORT):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return out
@@ -54,7 +57,7 @@ def test_importing_the_port_loads_no_jax():
                    timeout=300)
 
 
-def test_entry_points_need_a_gpu_unless_told_otherwise():
+def test_entry_points_need_a_gpu_unless_told_otherwise(monkeypatch):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     from tol_tpu_torch.api import make_problem
@@ -62,6 +65,37 @@ def test_entry_points_need_a_gpu_unless_told_otherwise():
         make_problem("S10", "tempest", ts=8)
     nlp = make_problem("S10", "tempest", ts=8, device="cpu")
     assert nlp.inst0.z_lo.device.type == "cpu"
+
+    import bench_scaling_torch
+    import graft_entry_torch
+    import torch.distributed as dist
+    from tol_tpu_torch.parallel import init_multihost, make_mesh
+    assert not dist.is_initialized()
+    for call in (make_mesh,
+                 lambda: init_multihost("127.0.0.1:1", 1, 0),
+                 graft_entry_torch.entry,
+                 lambda: graft_entry_torch.dryrun_multichip(1)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    monkeypatch.setenv("SCALING_PLATFORM", "gpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench_scaling_torch.main()
+    # none of them fell back to a world over gloo
+    assert not dist.is_initialized()
+
+
+def test_every_jax_module_has_its_port():
+    """Every .py of tol_tpu/ has its counterpart at the same place under
+    tol_tpu_torch/, and each root script of the JAX package its port."""
+    jax_pkg = os.path.join(ROOT, "tol_tpu")
+    missing = [os.path.relpath(os.path.join(d, f), jax_pkg)
+               for d, _, files in os.walk(jax_pkg) for f in files
+               if f.endswith(".py") and not os.path.exists(os.path.join(
+                   PORT, os.path.relpath(os.path.join(d, f), jax_pkg)))]
+    assert not missing, missing
+    for script, port in ROOT_SCRIPTS.items():
+        assert os.path.exists(os.path.join(ROOT, script))
+        assert os.path.exists(os.path.join(ROOT, port)), port
 
 
 @pytest.mark.parametrize("args", [
