@@ -67,6 +67,11 @@ Phases, each of which must pass (any failure exits non-zero and prints no
    cli     — ``python -m tol_tpu_torch 0 0 0 0 -100 0 100 tempest S10 --ts
              24`` in a subprocess with no ``--device``: must exit 0 and
              write a converged document.
+   bench   — ``bench_torch.py`` in a subprocess, configs 1 and 3 at 128
+             lanes in 32-lane groups and drain chunks, dive 20, group cap
+             30, budget 40 (``BENCH_CUTS``): must exit 0 and print bench.py's
+             JSON last with bench.py's keys, finite results, all four
+             airframes of the sweep and launches of K1-K3.
    parallel — ``parallel.make_mesh()`` makes a world of one over NCCL;
              ``sharded_batch_solve`` solves S10 / tempest at ts=24, 32
              lanes, chain crp (K1-K3 through the mesh path), and must equal
@@ -128,6 +133,13 @@ PAR_ITERS = 60
 SCALING_BATCHES = (128, 256, 512)   # the scaling phase's batch curve
 SCALING_ITERS = 8
 UTILS_STEPS = 5         # the utils phase's untraced window of dive steps
+# The bench phase: bench_torch.py's configs 1 and 3 cut to check the path,
+# not the gate: variable -> (bench.py's default, the cut)
+BENCH_CUTS = dict(BENCH_BATCH=("1024", "128"), BENCH_GROUP=("128", "32"),
+                  BENCH_DRAIN=("128", "32"), BENCH_N1=("90", "20"),
+                  BENCH_CAP1=("145", "30"), BENCH_MAX_ITER=("250", "40"),
+                  BENCH_G7=("1", "0"), BENCH_REPLAN=("1", "0"),
+                  BENCH_STORM=("1", "0"))
 LEVELS = [64, 32, 16, 8, 4, 2, 1]   # CR level widths h for T=100 -> 128
 TOL_REL = 1e-4          # kernel vs twin, relative max-norm, float32
 TOL_CHAINS = 1e-3       # chain solves vs the dense yardstick, relative
@@ -750,23 +762,9 @@ def check_chains(torch, ck, ch, dev, m=12):
 # phase 4: the solves
 # ---------------------------------------------------------------------------
 
-def _bench_params(torch, ALMParams, dev, **kw):
-    """bench.py:_params on the device (float32)."""
-    base = dict(tol=5e-3, feas_tol=1e-4, mu_init=1e-5, mu_min=1e-5,
-                mu_shrink=0.1, theta_mu=1.2, gamma_init=0.01, gamma_min=1e-6,
-                gamma_shrink=0.2, prox=3e-3, eta=1e-4, tau_min=0.99,
-                kappa_inner=1.0, delta_decay=0.2, gamma_eager=1.0,
-                max_iter=400)
-    base.update(kw)
-    mi = base.pop("max_iter")
-    return ALMParams(**{k: torch.tensor(v, dtype=torch.float32, device=dev)
-                        for k, v in base.items()},
-                     max_iter=torch.tensor(mi, dtype=torch.int32, device=dev))
-
-
 # bench.py's constants per configuration: the mission, dive length n1,
-# group cap, budget, the endgame numerics on top of _bench_params, the seed
-# of the lane noise, the lanes of bench.py's run; "storm" is config 5
+# group cap, budget, the endgame numerics on top of bench.py's _params, the
+# seed of the lane noise, the lanes of bench.py's run; "storm" is config 5
 # (wind model 3 on the demo storm grid, order 2, an endgame of 4 Armijo
 # trials, bench.py:486-580).
 MISSIONS = {
@@ -794,7 +792,8 @@ def make_mission(torch, key, lanes, dev):
     from tol_tpu_torch.api import make_problem
     from tol_tpu_torch.io.storm import make_demo_storm_grid
     from tol_tpu_torch.models.wind import WindConfig
-    from tol_tpu_torch.solver.alm import ALMOptions, ALMParams
+    from bench_torch import _params
+    from tol_tpu_torch.solver.alm import ALMOptions
     from tol_tpu_torch.solver.canonical import canonicalize
 
     spec = MISSIONS[key]
@@ -824,10 +823,10 @@ def make_mission(torch, key, lanes, dev):
                         max_ls=spec.get("endgame_ls", 8), factor_reuse=1),
         dive_opts=ALMOptions(max_iter=2000, dual_refine_k=0, max_ls=4,
                              factor_reuse=1),
-        p2=_bench_params(torch, ALMParams, dev, max_iter=spec["cap"], **end),
-        p2d=_bench_params(torch, ALMParams, dev, max_iter=spec["budget"], **end),
-        p1=_bench_params(torch, ALMParams, dev, tol=1e-12, feas_tol=1e-12,
-                         prox=0.0, gamma_eager=0.0, max_iter=spec["budget"]),
+        p2=_params(torch.float32, dev, max_iter=spec["cap"], **end),
+        p2d=_params(torch.float32, dev, max_iter=spec["budget"], **end),
+        p1=_params(torch.float32, dev, tol=1e-12, feas_tol=1e-12,
+                   prox=0.0, gamma_eager=0.0, max_iter=spec["budget"]),
         v0s=torch.where(fixed, lb,
                         torch.minimum(torch.maximum(v0 + dv, lb), ub)),
         f_ref=float(can.f(can.from_physical(ref), inst0)))
@@ -1046,6 +1045,65 @@ def run_cli():
              "cli: the document is not a converged 24-step trajectory")
 
 
+def _bench_py_keys():
+    """The keys of bench.py's result line and of its ``detail``, read from
+    bench.py's source (``result = {...}``)."""
+    import ast
+
+    with open(os.path.join(HERE, "bench.py")) as f:
+        tree = ast.parse(f.read())
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Assign) and isinstance(node.value, ast.Dict)
+                and any(getattr(t, "id", None) == "result"
+                        for t in node.targets)):
+            top = {k.value: v for k, v in zip(node.value.keys,
+                                              node.value.values)}
+            return set(top), {k.value for k in top["detail"].keys}
+    raise SmokeFailure("bench: no result dict in bench.py")
+
+
+def run_bench():
+    """``bench_torch.py`` in a subprocess at the cuts of BENCH_CUTS: configs 1
+    and 3 (the four-airframe sweep).  It must exit 0 and print bench.py's
+    JSON last, with bench.py's keys, finite results and all four airframes.
+    Returns the hand-written kernels' launches of its run."""
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "bench_torch.py"], cwd=HERE,
+                          capture_output=True, text=True, timeout=600,
+                          env={**os.environ, "PYTHONPATH": HERE,
+                               **{k: v for k, (_, v) in BENCH_CUTS.items()}})
+    wall = time.time() - t0
+    _require(proc.returncode == 0,
+             f"bench: exit {proc.returncode}: {proc.stderr[-2000:]}")
+    try:
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+    except (IndexError, json.JSONDecodeError) as e:
+        raise SmokeFailure(f"bench: the last line is not JSON: {e}")
+    top, detail = _bench_py_keys()
+    d = res.get("detail", {})
+    launches = d.get("launches", {})
+    rec = dict(phase="bench", seconds=wall,
+               reduced=[f"{k} {a} -> {b}" for k, (a, b) in BENCH_CUTS.items()],
+               result=res)
+    print(json.dumps(rec), flush=True)
+    _require(set(res) == top and detail <= set(d),
+             f"bench: keys differ from bench.py's: {sorted(set(res) ^ top)}, "
+             f"{sorted(detail - set(d))}")
+    finite = [d[k] for k in ("wall_s", "median_viol", "median_kkt",
+                             "flops_per_iter", "achieved_gflops", "mfu_pct")]
+    sweep = d["multi_airframe"] or {}
+    _require(all(isinstance(x, (int, float)) and np.isfinite(x)
+                 for x in finite + [res["value"]])
+             and d["platform"] == "gpu" and d["batch"] == 128,
+             f"bench: non-finite or missing results: {finite}")
+    _require(sorted(sweep.get("per_airframe_conv", {})) == sorted(
+        ["tempest", "tempest_eric", "tempest_wences", "tempest_will"]),
+             f"bench: the sweep did not run all four airframes: {sweep}")
+    _require(all(launches.get(k, 0) > 0 for k in CR_PASS_KERNELS),
+             f"bench: a kernel of the path was never launched: {launches}")
+    return {k: launches.get(k, 0) for k in KERNELS}
+
+
 # ---------------------------------------------------------------------------
 # phase 4b: the parallel layer, the scaling curve, the entry points, utils
 # ---------------------------------------------------------------------------
@@ -1059,7 +1117,8 @@ def run_parallel(torch, ck, ch, dev):
     from tol_tpu_torch.api import make_problem
     from tol_tpu_torch.parallel import (global_psum, global_stats_to_host,
                                         make_mesh, sharded_batch_solve)
-    from tol_tpu_torch.solver.alm import ALMOptions, ALMParams
+    from bench_torch import _params
+    from tol_tpu_torch.solver.alm import ALMOptions
     from tol_tpu_torch.solver.alm import solve as alm_solve
     from tol_tpu_torch.solver.canonical import canonicalize
     from tol_tpu_torch.solver.kkt_condensed import make_condensed_kkt
@@ -1080,8 +1139,8 @@ def run_parallel(torch, ck, ch, dev):
         can.initial_point() + dv, lb), ub))
     kkt = make_condensed_kkt(can, refine=0, chain="crp")
     opts = ALMOptions(max_iter=2000, dual_refine_k=0, max_ls=4)
-    p = _bench_params(torch, ALMParams, dev, max_iter=PAR_ITERS, tol=5e-3,
-                      feas_tol=1e-4, **MISSIONS["S10"]["endgame"])
+    p = _params(torch.float32, dev, max_iter=PAR_ITERS, tol=5e-3,
+                feas_tol=1e-4, **MISSIONS["S10"]["endgame"])
 
     def solve_batch(_, v):
         return alm_solve(can, kkt, opts, v0=v, params=p)
@@ -1391,6 +1450,9 @@ def main() -> int:
 
         with timer("cli"):
             run_cli()
+
+        with timer("bench"):
+            solve_paths["bench"] = run_bench()
 
         t_new = time.time()
         with timer("parallel"):

@@ -15,7 +15,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "tol_tpu_torch")
 SMOKE = os.path.join(ROOT, "chip_smoke.py")
 # the JAX package's root scripts -> their ports
-ROOT_SCRIPTS = {"bench_scaling.py": "bench_scaling_torch.py",
+ROOT_SCRIPTS = {"bench.py": "bench_torch.py",
+                "bench_scaling.py": "bench_scaling_torch.py",
                 "__graft_entry__.py": "graft_entry_torch.py"}
 
 
@@ -67,6 +68,7 @@ def test_entry_points_need_a_gpu_unless_told_otherwise(monkeypatch):
     assert nlp.inst0.z_lo.device.type == "cpu"
 
     import bench_scaling_torch
+    import bench_torch
     import graft_entry_torch
     import torch.distributed as dist
     from tol_tpu_torch.parallel import init_multihost, make_mesh
@@ -80,6 +82,10 @@ def test_entry_points_need_a_gpu_unless_told_otherwise(monkeypatch):
     monkeypatch.setenv("SCALING_PLATFORM", "gpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         bench_scaling_torch.main()
+    # the bench runs on the CPU only when BENCH_DEVICE=cpu says so
+    monkeypatch.delenv("BENCH_DEVICE", raising=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench_torch.main()
     # none of them fell back to a world over gloo
     assert not dist.is_initialized()
 
