@@ -34,10 +34,15 @@ Where this script differs from bench.py:
   takes numpy's ``default_rng(k)`` instead.  ``detail.seeds`` says which,
   per config.  ``seeds_for``'s clip and fix are applied here in torch.
 * Warm-up.  bench.py runs each config twice, the first run to compile XLA
-  programs.  The port compiles no program; its first use builds and loads
-  the kernel libraries.  So each solver is warmed on its first group for a
-  few iterations (``WARM_ITERS``), whose seconds are reported as
-  ``compile_s`` / ``compile_breakdown_s``, and the full run is timed once.
+  programs.  The port's counterpart is its first use: it builds and loads
+  the kernel libraries and captures the solver's step programs as CUDA
+  graphs (``solver/alm.py``), which the timed run replays.  So each solver
+  is warmed on its first group for a few iterations (``WARM_ITERS``),
+  whose seconds are reported as ``compile_s`` / ``compile_breakdown_s``
+  (the captures included), and the full run is timed once.
+* ``detail.graphs``: per config, the programs captured so far by its
+  solver, their capture seconds, and the card's peak memory
+  (``max_memory_allocated``) over the config.
 * Flops.  ``flops_per_iter`` is ``utils.flops.program_flops`` of one
   dive step of GB lanes (one substep of the dive body; one-body mode: of
   the phase-1 body).  It counts the aten operations that run, by XLA's
@@ -281,6 +286,19 @@ def s10_problem(s) -> dict:
                    gamma_eager=0.0, max_iter=s.max_iter))
 
 
+def gate_s10(s, can, res):
+    """bench.py's config-1 gate of a GroupedResult: (pass mask, feasible
+    mask, relative cost gap or None off ts=100)."""
+    f_star = _cost_ref(can, "golden_s10_ts100.npy", s.ts)
+    cost_gap = _gap(res.f, f_star) if f_star is not None else None
+    feas_ok = res.constr_viol < s.feas
+    ok = res.converged & feas_ok
+    if cost_gap is not None:
+        # one-sided: a flat-manifold solve may land below the oracle cost
+        ok = ok & (cost_gap < s.cost_gap)
+    return ok, feas_ok, cost_gap
+
+
 def run_s10(s, ctx, dv):
     """Config 1 on the noise ``dv``: warm-up, then the timed run.
     Returns (result, wall seconds, warm-up seconds, seeds)."""
@@ -375,7 +393,7 @@ def drain_mix(s, res) -> dict:
                 chunks_mixing_airframes=sum(len(c) > 1 for c in chunks))
 
 
-def run_g7(s, opts, seeds, compile_s):
+def run_g7(s, opts, seeds, compile_s, graphs):
     """Config 2 (bench.py:333-424): G7 / skywalker, gated on convergence;
     the gap against ``tests/g7_bestknown_ts100.npy`` is informational."""
     from tol_tpu_torch.api import make_problem
@@ -398,6 +416,7 @@ def run_g7(s, opts, seeds, compile_s):
                                     p_g, p_gd), 1)
     og, wall = timed(s, gsolve, [inst0] * (s.g7_batch // s.group), None, v0s,
                      p1_g, p_g, p_gd, s.g7_n1, -1.0)
+    graphs["g7_skywalker"] = _graph_stats(gsolve.programs, s.device)
     f_bk = _cost_ref(can, "g7_bestknown_ts100.npy", s.ts)
     gap = _gap(og.f, f_bk) if f_bk is not None else None
     return {
@@ -416,7 +435,7 @@ def run_g7(s, opts, seeds, compile_s):
     }
 
 
-def run_replan(s, legs: int = 9):
+def run_replan(s, legs: int = 9, graphs: dict | None = None):
     """Config 4 (bench.py:426-484): a cold G7 leg 400 m north through the
     mission layer's seed ensemble, then ``legs`` replans to goals drawn
     from ``default_rng(7)`` (bearing +-10 deg, range +-10%), each stitched
@@ -455,6 +474,8 @@ def run_replan(s, legs: int = 9):
                         "iters": doc["iterations"],
                         "warm": doc.get("used_warm"),
                         "cold_retry": doc.get("cold_retry")})
+    if graphs is not None:
+        graphs["replan"] = _graph_stats(solve_leg.programs, s.device)
     return {
         "p50_ms": round(float(np.median(times)) * 1000.0, 2),
         "p90_ms": round(float(np.percentile(times, 90)) * 1000.0, 2),
@@ -466,7 +487,7 @@ def run_replan(s, legs: int = 9):
     }
 
 
-def run_storm(s, ctx, seeds, compile_s):
+def run_storm(s, ctx, seeds, compile_s, graphs):
     """Config 5 (bench.py:486-575): S10 / tempest on the demo storm grid
     (wind model 3, order 2), a ``BENCH_STORM_LS``-trial endgame and group
     cap ``BENCH_STORM_CAP``, gated against ``tests/golden_storm_ts100.npy``
@@ -497,6 +518,7 @@ def run_storm(s, ctx, seeds, compile_s):
                                        p2s, p2d), 1)
     out, sw = timed(s, gsolve, [inst0] * (s.storm_batch // s.group), None,
                     v0s, p1, p2s, p2d, s.n1, -1.0)
+    graphs["storm_grid"] = _graph_stats(gsolve.programs, s.device)
     cs = out.converged
     fs = out.constr_viol < s.feas
     n_ok = int((cs & fs).sum())
@@ -545,6 +567,21 @@ def _launches():
             for k in ck.KERNELS + ch.KERNELS}
 
 
+def _reset_peak(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def _graph_stats(programs, device) -> dict:
+    """A solver's captured programs: how many, their capture seconds (part
+    of its warm-up's ``compile_s``) and the peak memory since
+    :func:`_reset_peak`."""
+    peak = (torch.cuda.max_memory_allocated(device) / 2**30
+            if device.type == "cuda" else None)
+    return dict(captures=programs.captures,
+                capture_s=round(programs.capture_s, 3), peak_mem_gib=peak)
+
+
 def _log(name, rec):
     print(json.dumps({"config": name, **rec}), file=sys.stderr, flush=True)
 
@@ -564,8 +601,9 @@ def main() -> dict:
     cache_start = _cache_entries()
     ck.reset_launch_counts()
     ch.reset_launch_counts()
-    compile_s, seeds = {}, {}
+    compile_s, seeds, graphs = {}, {}, {}
     GB, DB = s.group, s.drain
+    _reset_peak(s.device)
 
     # ================= config 1: S10-Tempest flagship =================
     ctx = s10_problem(s)
@@ -573,10 +611,10 @@ def main() -> dict:
     dv, seeds["s10"] = bench_draw("s10", s.batch, can.n)
     res1, elapsed, warm_s, v0s = run_s10(s, ctx, dv)
     compile_s["s10"] = round(warm_s, 1)
-    conv, viol, out_f, iters, out_kkt = (
-        res1.converged, res1.constr_viol, res1.f, res1.iterations,
-        res1.kkt_err)
+    conv, viol, iters, out_kkt = (res1.converged, res1.constr_viol,
+                                  res1.iterations, res1.kkt_err)
     group_iters, drain_iters = res1.group_iters, res1.drain_iters
+    graphs["s10"] = _graph_stats(ctx["gsolve"].programs, s.device)
 
     flops_per_iter = dive_step_flops(s, ctx, v0s[:GB])
     achieved = (flops_per_iter * (group_iters + (DB / GB) * drain_iters)
@@ -585,15 +623,8 @@ def main() -> dict:
     mfu_pct = (100.0 * achieved / peak) if (peak and achieved == achieved) \
         else None
 
-    f_star = _cost_ref(can, "golden_s10_ts100.npy", s.ts)
-    cost_gap = _gap(out_f, f_star) if f_star is not None else None
-    l2 = ctrl_l2(can, res1.v, s.ts) if f_star is not None else None
-    feas_ok = viol < s.feas
-    if cost_gap is not None:
-        # one-sided: a flat-manifold solve may land below the oracle cost
-        ok = conv & feas_ok & (cost_gap < s.cost_gap)
-    else:
-        ok = conv & feas_ok
+    ok, feas_ok, cost_gap = gate_s10(s, can, res1)
+    l2 = ctrl_l2(can, res1.v, s.ts) if cost_gap is not None else None
     n_ok = int(np.sum(ok))
     solves_per_s = n_ok / elapsed if elapsed > 0 else 0.0
     _log("s10", dict(accurate_and_feasible=n_ok, batch=s.batch,
@@ -604,25 +635,32 @@ def main() -> dict:
     sweep = None
     if s.sweep and s.batch % 4 == 0 and (s.batch // 4) % GB == 0:
         dv3, seeds["multi_airframe"] = bench_draw("sweep", s.batch, can.n)
+        _reset_peak(s.device)
         sweep, res3 = run_sweep(s, ctx, dv3)
+        # config 1's programs, refilled with each airframe's Instance
+        graphs["multi_airframe"] = _graph_stats(ctx["gsolve"].programs,
+                                                s.device)
         _log("multi_airframe", {**sweep, **drain_mix(s, res3)})
 
     # ================= config 2: G7-Skywalker =================
     g7 = None
     if s.g7:
-        g7 = run_g7(s, ctx["opts"], seeds, compile_s)
+        _reset_peak(s.device)
+        g7 = run_g7(s, ctx["opts"], seeds, compile_s, graphs)
         _log("g7_skywalker", g7)
 
     # ====== config 4: warm replanning through the mission layer ======
     replan = None
     if s.replan:
-        replan = run_replan(s)
+        _reset_peak(s.device)
+        replan = run_replan(s, graphs=graphs)
         _log("replan", replan)
 
     # ================= config 5: storm-grid S10 =================
     storm = None
     if s.storm:
-        storm = run_storm(s, ctx, seeds, compile_s)
+        _reset_peak(s.device)
+        storm = run_storm(s, ctx, seeds, compile_s, graphs)
         _log("storm_grid", storm)
 
     result = {
@@ -668,6 +706,7 @@ def main() -> dict:
             "card": _card(s.device),
             "seeds": seeds,
             "launches": _launches(),
+            "graphs": graphs,
         },
     }
     print(json.dumps(result), flush=True)

@@ -90,10 +90,29 @@ Phases, each of which must pass (any failure exits non-zero and prints no
              step of 128 lanes under ``utils.profiling.trace``, whose
              Chrome trace must name the K1-K3 kernels; that step's
              ``program_flops``, the card's ``peak_flops()`` and the share.
+   graph   — the solver loop as captured programs (``solver/alm.py``'s
+             ``_StepProgram``: one masked step, captured once as a CUDA
+             graph and replayed).  s10's and the storm's first 128-lane
+             group through the grouped solver's dive, phase switch,
+             endgame and drain (of the whole group), and the s10_seqdive
+             dive, each eagerly (``_loop="eager"``) and captured: per
+             ALMState field after each stage, equal bits or the largest
+             difference; the launches of both runs; ms per step of both;
+             per program its replay against the same unit run eagerly,
+             the device busy time and idle share of a replay under
+             torch.profiler, its kernel nodes and the hand-written
+             kernels among them (K1-K3; K6-K8 in the sequential dive:
+             each must appear), capture seconds and peak memory.  Then
+             bench config 1 at full size captured (``bench_torch``'s
+             solver, draws and gate in this process: 1024 lanes, groups
+             and drain chunks of 128), gated at 1008/1024.  Every solve
+             phase above runs captured as well: on the card ``alm.solve``
+             replays its step programs unless told otherwise.
 5. profile — one dive (crp and sequential) and one endgame iteration of 128
              lanes under torch.profiler, and one storm endgame iteration:
              host wall, device busy time and idle share, the hand-written
-             kernels' share, kernel launches.
+             kernels' share, kernel launches; beside each, the same step
+             as a captured program's replay (``replayed``).
 
 The last lines are the card's name and power limit, the ``kernels`` JSON
 and finally
@@ -215,6 +234,12 @@ def _nvidia_smi(query: str) -> str:
         capture_output=True, text=True, timeout=60)
     _require(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def _names_kernel(symbol: str, key: str) -> bool:
+    """Whether the profiler's kernel name ``key`` is the kernel ``symbol``
+    (``fwd_pass_kernel`` is not ``factor_fwd_pass_kernel``)."""
+    return re.search(rf"(?<!\w){symbol}(?!\w)", key) is not None
 
 
 def _kernel_name(wrapper) -> str:
@@ -845,6 +870,7 @@ def run_solve(torch, ck, ch, path, ctx, lanes, dive_chain, expect):
         group_size=B_LANES, drain_size=B_LANES, dive_opts=ctx["dive_opts"],
         dive_kkt=make_condensed_kkt(can, refine=0, chain=dive_chain))
     _reset_launch_counts(ck, ch)
+    torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.time()
     res = gsolve([can.nlp.inst0] * (lanes // B_LANES), None,
@@ -878,7 +904,9 @@ def run_solve(torch, ck, ch, path, ctx, lanes, dive_chain, expect):
         median_iters=int(np.median(res.iterations)),
         p90_iters=int(np.percentile(res.iterations, 90)),
         group_iters=res.group_iters, drain_iters=res.drain_iters,
-        wall_s=wall, launches=launches)
+        wall_s=wall, launches=launches, captures=gsolve.programs.captures,
+        capture_s=gsolve.programs.capture_s,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
     rec["ms_per_iteration"] = 1e3 * wall / (res.group_iters + res.drain_iters)
     print(json.dumps(rec), flush=True)
     _require(all(launches[k] > 0 for k in expect),
@@ -980,6 +1008,7 @@ def run_replan(torch, ck, ch, dev):
         return doc
 
     _reset_launch_counts(ck, ch)
+    torch.cuda.reset_peak_memory_stats()
     doc = leg(Goal(xg=0.0, yg=400.0, zg=0.0, rg=0.0))
     rng = np.random.default_rng(7)
     for _ in range(REPLANS):
@@ -1001,7 +1030,8 @@ def run_replan(torch, ck, ch, dev):
         p90_ms=float(np.percentile(warm_ms, 90)) if warm_ms else None,
         converged=sum(x["converged"] for x in legs), legs_run=len(legs),
         reduced=([f"replans 9 -> {REPLANS}"] if REPLANS < 9 else []),
-        launches=launches)
+        launches=launches,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
     print(json.dumps(rec), flush=True)
     _require(all(x["converged"] for x in legs),
              f"replan: {rec['converged']}/{len(legs)} legs converged")
@@ -1306,6 +1336,253 @@ def run_utils(torch, ck, ch, timer, s10_v, par, ctx):
 
 
 # ---------------------------------------------------------------------------
+# phase 4c: the solver loop as captured programs against the eager loop
+# ---------------------------------------------------------------------------
+
+GRAPH_REPLAYS = 20      # replays timed per program
+GRAPH_EAGER_STEPS = 3   # eager steps of the same unit timed per program
+BENCH_GATE = 1008       # config 1: the reference's round-5 count of 1024
+
+
+def _same_bits(torch, x, y):
+    if x.dtype.is_floating_point:
+        ints = {4: torch.int32, 8: torch.int64}[x.element_size()]
+        x, y = x.view(ints), y.view(ints)
+    return torch.equal(x, y)
+
+
+def _field_diff(torch, a, b) -> dict:
+    """Per ALMState field of two runs: "equal" (bit for bit), else the
+    largest absolute difference (inf where only one side is NaN)."""
+    out = {}
+    for k in a._fields:
+        x, y = getattr(a, k), getattr(b, k)
+        if _same_bits(torch, x, y):
+            out[k] = "equal"
+        else:
+            d = (x.double() - y.double()).abs()
+            out[k] = float(torch.nan_to_num(d, nan=float("inf")).max())
+    return out
+
+
+def replay_profile(torch, prog) -> dict:
+    """A captured step program's replay: its wall by the host clock over
+    ``GRAPH_REPLAYS`` replays, beside the same unit run eagerly
+    (``GRAPH_EAGER_STEPS`` steps); then one replay under torch.profiler:
+    device busy time and the hand-written kernels' share of it, the idle
+    share of the untraced replay's wall (busy over that wall, whose busy
+    time is the traced replay's and runs a little long: clamped at 0),
+    the idle share of the traced replay's own first-to-last kernel span
+    (tracing lengthens a graph's gaps, so this one reads high), the
+    kernel nodes it launched and the hand-written kernels among them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(GRAPH_REPLAYS):
+        prog.run()
+    torch.cuda.synchronize()
+    replay_ms = 1e3 * (time.time() - t0) / GRAPH_REPLAYS
+    t0 = time.time()
+    for _ in range(GRAPH_EAGER_STEPS):
+        prog.step()
+    torch.cuda.synchronize()
+    eager_ms = 1e3 * (time.time() - t0) / GRAPH_EAGER_STEPS
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        prog.run()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    measured = busy_ms > 0
+    spans = [e.time_range for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    span_ms = ((max(r.end for r in spans) - min(r.start for r in spans)) / 1e3
+               if spans else 0.0)
+    in_graph = {k: sum(e.count for e in kernels if _names_kernel(sym, e.key))
+                for k, sym in SYMBOLS.items()}
+    hand_ms = sum(e.self_device_time_total for e in kernels
+                  if any(_names_kernel(sym, e.key)
+                         for sym in SYMBOLS.values())) / 1e3
+    return dict(
+        replay_ms=replay_ms, eager_step_ms=eager_ms,
+        device_busy_ms=busy_ms if measured else None,
+        hand_kernels_ms=hand_ms if measured else None,
+        busy_over_replay_wall=busy_ms / replay_ms if measured else None,
+        device_idle_share=max(0.0, 1.0 - busy_ms / replay_ms) if measured
+        else None,
+        traced_span_ms=span_ms if measured else None,
+        traced_span_idle_share=(1.0 - busy_ms / span_ms)
+        if measured and span_ms else None,
+        kernel_nodes=sum(e.count for e in kernels) if measured else None,
+        hand_kernels_in_replay={k: n for k, n in in_graph.items() if n},
+        launches_per_replay={_kernel_name(k): n
+                             for k, n in prog.launches.items()},
+        capture_s=prog.capture_s)
+
+
+def _stage_runs(torch, g, ctx, lanes, stages):
+    """The first group of ``ctx`` through ``g``'s programs: the dive and the
+    phase switch, then (with "endgame" in ``stages``) the endgame and a
+    drain of the whole group (its converged lanes frozen).  Returns the
+    state after each stage, its seconds and its steps."""
+    can, spec = ctx["can"], ctx["spec"]
+    inst, dev = can.nlp.inst0, ctx["v0s"].device
+    n_max = torch.tensor(spec["n1"], dtype=torch.int32, device=dev)
+    xdf = torch.tensor(-1.0, dtype=torch.float32, device=dev)
+    states, secs = {}, {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.time() - t0
+        states[name] = out if name == "dive" else out.state
+        return states[name]
+
+    st = timed("dive", lambda: g.run_dive(inst, ctx["v0s"][:lanes],
+                                          ctx["p1"], ctx["p2"], n_max))
+    if "endgame" in stages:
+        end = timed("endgame", lambda: g.run_end(inst, st, ctx["p2"]))
+        timed("drain", lambda: g.run_drain(inst, end, ctx["p1"], ctx["p2d"],
+                                           n_max, xdf))
+    steps = {"dive": spec["n1"]}
+    if "endgame" in stages:
+        steps["endgame"] = int((states["endgame"].it - st.it).max())
+        steps["drain"] = int((states["drain"].it
+                              - states["endgame"].it).max())
+    return states, secs, steps
+
+
+def compare_programs(torch, ck, ch, path, ctx, dive_chain, stages):
+    """One 128-lane group through the grouped solver's dive, switch,
+    endgame and drain, eagerly and through the captured programs: the bits
+    of every ALMState field after each stage, the launches of both runs,
+    ms per step of each, and each program's replay profile."""
+    from tol_tpu_torch.solver.batch import make_grouped_solver
+    from tol_tpu_torch.solver.kkt_condensed import make_condensed_kkt
+
+    can = ctx["can"]
+    runs = {}
+    for loop in ("eager", "program"):
+        g = make_grouped_solver(
+            can, make_condensed_kkt(can, refine=1, chain="crp"),
+            ctx["opts"], group_size=B_LANES, drain_size=B_LANES,
+            dive_opts=ctx["dive_opts"],
+            dive_kkt=make_condensed_kkt(can, refine=0, chain=dive_chain),
+            _loop=loop)
+        _reset_launch_counts(ck, ch)
+        torch.cuda.reset_peak_memory_stats()
+        states, secs, steps = _stage_runs(torch, g, ctx, B_LANES, stages)
+        runs[loop] = dict(states=states, secs=secs, steps=steps, g=g,
+                          launches=_launch_counts(ck, ch),
+                          peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    eager, graph = runs["eager"], runs["program"]
+    bits = {st: _field_diff(torch, graph["states"][st], eager["states"][st])
+            for st in eager["states"]}
+    g = graph["g"]
+    profiles = {}
+    for prog in g.programs.programs.values():
+        kind = ("drain" if prog.phase1 is not None
+                else "dive" if prog.opts == ctx["dive_opts"] else "endgame")
+        # a stage of fewer than two steps captures nothing
+        profiles[kind] = (replay_profile(torch, prog) if prog.graph is not None
+                          else "not captured")
+    rec = dict(
+        phase="graph", path=path, lanes=B_LANES, dive_chain=dive_chain,
+        stages=list(eager["states"]), steps=eager["steps"],
+        bits_equal={st: all(v == "equal" for v in d.values())
+                    for st, d in bits.items()},
+        fields=bits,
+        ms_per_step={loop: {st: 1e3 * r["secs"][st] / max(1, r["steps"][st])
+                            for st in r["secs"]}
+                     for loop, r in runs.items()},
+        stage_s={loop: r["secs"] for loop, r in runs.items()},
+        launches=dict(eager=eager["launches"], graph=graph["launches"]),
+        launches_equal=eager["launches"] == graph["launches"],
+        peak_mem_gib=dict(eager=eager["peak_gib"], graph=graph["peak_gib"]),
+        captures=g.programs.captures, capture_s=g.programs.capture_s,
+        replay=profiles)
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def run_graph_bench(torch, ck, ch):
+    """Bench config 1 at bench.py's full size through the captured programs
+    (``bench_torch``'s solver, draws and gate, in this process): 1024
+    lanes, groups and drain chunks of 128, gated at the reference's
+    round-5 count."""
+    import bench_torch as bt
+
+    s = bt.settings()
+    _require(s.device.type == "cuda" and s.batch == 1024 and s.group == 128,
+             f"graph bench: not bench.py's defaults ({s.batch}, {s.group})")
+    ctx = bt.s10_problem(s)
+    can = ctx["can"]
+    dv, seeds = bt.bench_draw("s10", s.batch, can.n)
+    _reset_launch_counts(ck, ch)
+    torch.cuda.reset_peak_memory_stats()
+    res, wall, warm_s, _ = bt.run_s10(s, ctx, dv)
+    launches = _launch_counts(ck, ch)
+    ok, feas_ok, gap = bt.gate_s10(s, can, res)
+    programs = ctx["gsolve"].programs
+    rec = dict(
+        phase="graph_bench", config="1 S10 / tempest", lanes=s.batch,
+        group=s.group, drain=s.drain, n1=s.n1, cap=s.cap1,
+        max_iter=s.max_iter, seeds=seeds, reduced=[],
+        accurate_and_feasible=int(ok.sum()), gate=BENCH_GATE,
+        converged=int(res.converged.sum()), feasible=int(feas_ok.sum()),
+        median_cost_gap=float(np.median(gap)),
+        median_iters=int(np.median(res.iterations)),
+        p90_iters=int(np.percentile(res.iterations, 90)),
+        group_iters=res.group_iters, drain_iters=res.drain_iters,
+        wall_s=wall, warm_up_s=warm_s, captures=programs.captures,
+        capture_s=programs.capture_s,
+        ms_per_group_iteration=1e3 * wall / (res.group_iters
+                                             + res.drain_iters),
+        value=int(ok.sum()) / wall,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+        launches=launches)
+    print(json.dumps(rec), flush=True)
+    _require(rec["accurate_and_feasible"] >= BENCH_GATE,
+             f"graph bench: {rec['accurate_and_feasible']}/{s.batch} lanes "
+             f"pass (< {BENCH_GATE})")
+    return launches
+
+
+def run_graph(torch, ck, ch, dev):
+    """The ``graph`` phase: s10's and the storm's first group and the
+    s10_seqdive dive, eager against captured, then config 1 at full size
+    captured.  Returns the launches of the captured runs."""
+    s10 = make_mission(torch, "S10", B_LANES, dev)
+    storm = make_mission(torch, "storm", B_LANES, dev)
+    recs = [compare_programs(torch, ck, ch, "s10", s10, "crp",
+                             ("dive", "endgame")),
+            compare_programs(torch, ck, ch, "storm", storm, "crp",
+                             ("dive", "endgame")),
+            compare_programs(torch, ck, ch, "s10_seqdive", s10, "pallas",
+                             ("dive",))]
+    launches = {k: sum(r["launches"]["graph"][k] for r in recs)
+                for k in KERNELS}
+    for r in recs:
+        # the dive's chain, and the endgame's (crp) where it ran
+        want = ((CHAIN_KERNELS if r["dive_chain"] == "pallas"
+                 else CR_PASS_KERNELS)
+                + (CR_PASS_KERNELS if "endgame" in r["stages"] else ()))
+        profs = [p for p in r["replay"].values() if isinstance(p, dict)]
+        named = {k for p in profs for k in p["hand_kernels_in_replay"]}
+        _require(set(want) <= named
+                 or all(p["kernel_nodes"] is None for p in profs),
+                 f"graph {r['path']}: kernels missing from the replays: "
+                 f"{sorted(set(want) - named)}")
+    bench = run_graph_bench(torch, ck, ch)
+    return {k: launches[k] + bench[k] for k in KERNELS}, recs
+
+
+# ---------------------------------------------------------------------------
 # phase 5: where a solver iteration's time goes
 # ---------------------------------------------------------------------------
 
@@ -1318,15 +1595,14 @@ def profile_iterations(torch, ck, ch, can, v0s, bodies):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from tol_tpu_torch.solver.alm import make_kernel
+    from tol_tpu_torch.solver.alm import _StepProgram, make_kernel
     from tol_tpu_torch.solver.kkt_condensed import make_condensed_kkt
 
     ours = tuple(SYMBOLS.values())
     out = {}
     for name, opts, refine, chain, p in bodies:
-        kern = make_kernel(can, make_condensed_kkt(can, refine=refine,
-                                                   chain=chain),
-                           opts, can.nlp.inst0, v0s)
+        kkt = make_condensed_kkt(can, refine=refine, chain=chain)
+        kern = make_kernel(can, kkt, opts, can.nlp.inst0, v0s)
         st = kern.init_state(p, p, False)
         for _ in range(6):
             st, _ = kern.substep(st, None, p, p, None)
@@ -1347,7 +1623,8 @@ def profile_iterations(torch, ck, ch, can, v0s, bodies):
         ours_ms = sum(e.self_device_time_total for e in kernels
                       if any(s in e.key for s in ours)) / 1e3
         by_kernel = {k: sum(e.self_device_time_total for e in kernels
-                            if SYMBOLS[k] in e.key) / 1e3 for k in per_step}
+                            if _names_kernel(SYMBOLS[k], e.key)) / 1e3
+                     for k in per_step}
         measured = busy_ms > 0
         out[name] = dict(
             wall_ms=1e3 * wall, chain=chain, launches_per_step=per_step,
@@ -1357,6 +1634,13 @@ def profile_iterations(torch, ck, ch, can, v0s, bodies):
             hand_kernels_ms=ours_ms if measured else None,
             hand_kernels_ms_by_kernel=by_kernel if measured else None,
             kernel_launches=sum(e.count for e in kernels) if measured else None)
+        # the same step as a captured program: a warm-up step, the capture
+        # and one replay, then the replays profiled
+        prog = _StepProgram(can, kkt, opts, can.nlp.inst0, st, p, None)
+        prog.load(can.nlp.inst0, st, p, None)
+        prog.run()
+        prog.run()
+        out[name]["replayed"] = replay_profile(torch, prog)
     return out
 
 
@@ -1464,6 +1748,12 @@ def main() -> int:
         run_utils(torch, ck, ch, timer, s10_v, par, ctx)
         print(json.dumps(dict(phase="new_phases_total",
                               seconds=time.time() - t_new)), flush=True)
+
+        t0 = time.time()
+        with timer("graph"):
+            solve_paths["graph"], _ = run_graph(torch, ck, ch, dev)
+        print(json.dumps(dict(phase="graph_total",
+                              seconds=time.time() - t0)), flush=True)
         by_path.update(solve_paths)
         # A kernel's launches: those of the solves; K5, which no solve
         # reaches, has those of the chains phase.

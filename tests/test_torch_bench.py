@@ -39,7 +39,7 @@ from tol_tpu.solver.kkt_condensed import make_condensed_kkt as jcondensed
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TS, GB, DB, N1, CAP1, FULL = 8, 2, 2, 6, 12, 18
 # what bench_torch's detail adds to bench.py's
-DETAIL_EXTRA = ("card", "seeds", "launches")
+DETAIL_EXTRA = ("card", "seeds", "launches", "graphs")
 # the bench's variables for this file's runs: ts=8, 2-lane groups and
 # drain chunks, a short dive, group cap and budget
 SMALL = dict(BENCH_DEVICE="cpu", BENCH_TS=str(TS), BENCH_GROUP=str(GB),
@@ -167,7 +167,7 @@ def _bench_py_keys(name):
 
 def _same_keys(got, want, extra=()):
     """``got`` has ``want``'s keys (and ``extra``), nested dicts alike;
-    ``detail`` may add the port's three keys."""
+    ``detail`` may add the port's four keys."""
     assert set(got) == set(want) | set(extra), sorted(
         set(got) ^ (set(want) | set(extra)))
     for k, sub in want.items():
@@ -207,8 +207,12 @@ def test_the_script_prints_bench_py_json_last():
     assert all(np.isfinite(d[k]) for k in ("median_viol", "median_kkt"))
     assert sum(d["multi_airframe"]["per_airframe_conv"].values()) == \
         d["multi_airframe"]["converged"]
-    # on the CPU every wrapper takes its twin: no launch
+    # on the CPU every wrapper takes its twin: no launch; no graph either
     assert not any(d["launches"].values())
+    assert set(d["graphs"]) == {"s10", "multi_airframe", "g7_skywalker",
+                                "storm_grid"}
+    assert all(g["captures"] == 0 and g["peak_mem_gib"] is None
+               for g in d["graphs"].values())
 
 
 def test_replan_loop_is_bench_py_loop(monkeypatch):

@@ -153,7 +153,9 @@ def test_phase_switch_state_matches_jax():
 
 def test_results_do_not_depend_on_check_every(monkeypatch):
     """A finished lane is frozen, so how often the host tests for "all lanes
-    done" cannot change any lane's result."""
+    done" cannot change any lane's result, in the eager loop or through
+    the step program (whose unit the card captures; here it runs
+    eagerly), states included."""
     _, tc = _problem()
     jc, _ = _problem()
     V = torch.as_tensor(_seeds(jc, 3))
@@ -168,8 +170,12 @@ def test_results_do_not_depend_on_check_every(monkeypatch):
     runs = []
     for k in (1, 4, 50):
         monkeypatch.setattr(talm, "_CHECK_EVERY", k)
-        runs.append(talm.solve(tc, kkt, opts, params=p1t, state0=state0))
+        for loop in ("eager", "program"):
+            runs.append(talm.solve(tc, kkt, opts, params=p1t, state0=state0,
+                                   keep_state=True, _loop=loop))
     for r in runs[1:]:
         for a, b in zip(r[:9], runs[0][:9]):
+            assert torch.equal(a, b)
+        for a, b in zip(r.state, runs[0].state):
             assert torch.equal(a, b)
     assert runs[0].iterations.tolist() == [12, 12, 12]

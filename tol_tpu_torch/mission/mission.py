@@ -100,7 +100,8 @@ def default_leg_solver(cfg: MissionConfig) -> Callable:
     from tol_tpu_torch.io.results import results_document
     from tol_tpu_torch.models.wind import WindConfig
     from tol_tpu_torch.problems.base import make_instance, resolve_device
-    from tol_tpu_torch.solver.alm import ALMOptions, ALMParams, solve
+    from tol_tpu_torch.solver.alm import (ALMOptions, ALMParams, ProgramCache,
+                                          solve as alm_solve)
     from tol_tpu_torch.solver.canonical import canonicalize
     from tol_tpu_torch.solver.kkt_condensed import make_condensed_kkt
 
@@ -110,6 +111,12 @@ def default_leg_solver(cfg: MissionConfig) -> Callable:
     warm: dict = {}   # mission_type -> (v, y, goal) of the last converged leg
     wind_cache: dict = {}
     leg_counter = [0]  # ensemble legs so far: the noise differs per leg
+    # the step programs of every slice and leg (one per mission type and
+    # lane count): a leg re-solves with new instance tensors, refilled
+    programs = ProgramCache()
+
+    def solve(*args, **kw):
+        return alm_solve(*args, _programs=programs, **kw)
 
     def _wind_config() -> WindConfig:
         """This leg's wind; with wind_refresh the TOLWGRID file is re-read."""
@@ -207,6 +214,7 @@ def default_leg_solver(cfg: MissionConfig) -> Callable:
             warm[mission_type] = (v, y, goal_ned)
         return doc
 
+    solve_leg.programs = programs
     return solve_leg
 
 

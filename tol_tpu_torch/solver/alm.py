@@ -17,21 +17,38 @@ steps, or sooner when the lanes' iteration budget runs out (each test is a
 device sync); a frozen lane does not move, so results do not depend on
 ``_CHECK_EVERY``.
 
+On the card the loop's unit is a captured program, the counterpart of the
+JAX package's jitted ``while_loop``: one masked step (``active``, the
+Newton step, the select) that writes its result back into static state
+buffers, captured once as a CUDA graph per (program, lanes, dtype, static
+structure) and replayed between the host's checks (:class:`_StepProgram`,
+:class:`ProgramCache`).  The state, the ``ALMParams``/``Phase1`` tensors
+and the Instance's tensors are the graph's inputs, refilled by ``copy_``,
+so one graph serves every group, budget and airframe of one structure.
+The eager loop runs on the CPU, for ``opts.trace`` / ``opts.verbose``, and
+when ``solve``'s private ``_loop="eager"`` asks for it.
+
 Every reduction is per lane (over the last axis); no value crosses lanes.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import time
+from collections import OrderedDict
 from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 from torch.func import grad, jvp, vjp
 
+from tol_tpu_torch.ops import chainkern, crkern
 from tol_tpu_torch.solver.canonical import CanonicalNLP
 
 _BIG = 1e19
 _CHECK_EVERY = 8    # solver steps between the host's "all lanes done" tests
+_PROGRAMS_KEPT = 8  # step programs a ProgramCache keeps (a grouped solver
+                    # needs three: dive, endgame, drain)
 
 
 class ALMOptions(NamedTuple):
@@ -193,6 +210,13 @@ def _fmax(x, lo):
     return torch.maximum(x, torch.full_like(x, lo))
 
 
+def _div(x, d):
+    """``x / d`` for a 0-d tensor ``d`` on ``x``'s device, with the bits of
+    ``x / float(d)``: PyTorch's CUDA division by a host scalar multiplies
+    by the scalar's reciprocal, its CPU division divides."""
+    return x * (1.0 / d) if x.is_cuda else x / d
+
+
 def _select(mask, a: NamedTuple, b: NamedTuple):
     """Field-wise ``where(mask, a, b)`` over lanes; mask (B,)."""
     out = []
@@ -258,6 +282,7 @@ class _Kernel(NamedTuple):
     kkt_errors: Callable   # (v, y, zl, zu, mu) -> (err, viol, e_d, e_c)
     f_fn: Callable
     c_fn: Callable
+    rebind: Callable       # () -> None: bounds recomputed from inst in place
 
 
 def make_kernel(can: CanonicalNLP, kkt_solve: Callable, opts: ALMOptions,
@@ -268,7 +293,27 @@ def make_kernel(can: CanonicalNLP, kkt_solve: Callable, opts: ALMOptions,
     has_lb = (lb > -_BIG) & ~fixed
     has_ub = (ub < _BIG) & ~fixed
     dtype, dev = v0.dtype, v0.device
-    nz = int(has_lb.sum()) + int(has_ub.sum())
+    zero = torch.zeros((), dtype=dtype, device=dev)   # mu of the plain error
+
+    def bound_counts(has_lb, has_ub):
+        """max(1, m + nz) and max(1, nz), nz the finite, non-fixed bounds:
+        the scaling counts of the KKT error, on the device, since nz
+        depends on the Instance's values (as the JAX package traces it)."""
+        nz = (has_lb.sum() + has_ub.sum()).to(dtype)
+        return torch.clamp(nz + can.m, min=1.0), torch.clamp(nz, min=1.0)
+
+    n_md, n_z = bound_counts(has_lb, has_ub)
+
+    def rebind():
+        """Recompute the bound tensors from ``inst`` in place: a step
+        program refills ``inst``'s tensors between solves, and its graph
+        reads these tensors."""
+        lb_n, ub_n, fixed_n = can.bounds(inst)
+        hl, hu = (lb_n > -_BIG) & ~fixed_n, (ub_n < _BIG) & ~fixed_n
+        for buf, x in zip((lb, ub, fixed, has_lb, has_ub, n_md, n_z),
+                          (lb_n, ub_n, fixed_n, hl, hu,
+                           *bound_counts(hl, hu))):
+            buf.copy_(x)
 
     f_fn = lambda v: can.f(v, inst)
     c_fn = lambda v: can.c(v, inst)
@@ -312,15 +357,16 @@ def make_kernel(can: CanonicalNLP, kkt_solve: Callable, opts: ALMOptions,
         theta = c_fn(v)
         comp_l = torch.where(has_lb, zl * dl, 0.0)
         comp_u = torch.where(has_ub, zu * du, 0.0)
-        s_d = _fmax((y.abs().sum(-1) + zl.abs().sum(-1) + zu.abs().sum(-1))
-                    / max(1, can.m + nz), opts.s_max) / opts.s_max
-        s_c = _fmax((zl.abs().sum(-1) + zu.abs().sum(-1)) / max(1, nz),
+        s_d = _fmax(_div(y.abs().sum(-1) + zl.abs().sum(-1)
+                         + zu.abs().sum(-1), n_md), opts.s_max) / opts.s_max
+        s_c = _fmax(_div(zl.abs().sum(-1) + zu.abs().sum(-1), n_z),
                     opts.s_max) / opts.s_max
         return r_d, theta, comp_l, comp_u, s_d, s_c
 
     def _errors_at(parts, mu):
+        """``mu``: a tensor on the lanes' device, (B,) or 0-d."""
         r_d, theta, comp_l, comp_u, s_d, s_c = parts
-        mu = torch.as_tensor(mu, dtype=dtype, device=dev).reshape(-1, 1)
+        mu = mu.reshape(-1, 1)
         comp = torch.maximum(
             _inf_norm(torch.where(has_lb, comp_l - mu, 0.0)),
             _inf_norm(torch.where(has_ub, comp_u - mu, 0.0)))
@@ -330,7 +376,10 @@ def make_kernel(can: CanonicalNLP, kkt_solve: Callable, opts: ALMOptions,
         return torch.maximum(torch.maximum(e_d, e_p), e_c), e_p, e_d, e_c
 
     def kkt_errors(v, y, zl, zu, mu):
-        """KKT error of the original NLP at multiplier estimate y."""
+        """KKT error of the original NLP at multiplier estimate y; ``mu`` a
+        tensor or a Python float."""
+        if not isinstance(mu, torch.Tensor):
+            mu = torch.full((), mu, dtype=dtype, device=dev)
         return _errors_at(_kkt_parts(v, y, zl, zu), mu)
 
     def init_state(p0: ALMParams, p2: ALMParams, in_phase1: bool) -> ALMState:
@@ -344,7 +393,7 @@ def make_kernel(can: CanonicalNLP, kkt_solve: Callable, opts: ALMOptions,
         yhat = (torch.zeros(B, can.m, dtype=dtype, device=dev) if y0 is None
                 else torch.as_tensor(y0, dtype=dtype, device=dev).expand(B, can.m))
         cv = c_fn(v)
-        err = kkt_errors(v, yhat, zl, zu, 0.0)[0]
+        err = kkt_errors(v, yhat, zl, zu, zero)[0]
         izero = torch.zeros(B, dtype=torch.int32, device=dev)
         return ALMState(
             v=v, v_ref=v, yhat=yhat, y_ls=yhat, zl=zl, zu=zu, mu=mu,
@@ -511,11 +560,11 @@ def make_kernel(can: CanonicalNLP, kkt_solve: Callable, opts: ALMOptions,
             zu_ls = zu_n + d_u
             comp_l_ls = torch.where(has_lb, zl_ls * dl_n, 0.0)
             comp_u_ls = torch.where(has_ub, zu_ls * du_n, 0.0)
-            s_d_ls = _fmax((y_ls.abs().sum(-1) + zl_ls.abs().sum(-1)
-                            + zu_ls.abs().sum(-1)) / max(1, can.m + nz),
+            s_d_ls = _fmax(_div(y_ls.abs().sum(-1) + zl_ls.abs().sum(-1)
+                                + zu_ls.abs().sum(-1), n_md),
                            opts.s_max) / opts.s_max
-            s_c_ls = _fmax((zl_ls.abs().sum(-1) + zu_ls.abs().sum(-1))
-                           / max(1, nz), opts.s_max) / opts.s_max
+            s_c_ls = _fmax(_div(zl_ls.abs().sum(-1) + zu_ls.abs().sum(-1),
+                                n_z), opts.s_max) / opts.s_max
             parts_ls = (r_ls, parts_n[1], comp_l_ls, comp_u_ls, s_d_ls, s_c_ls)
         else:
             y_ls = st.y_ls
@@ -547,9 +596,9 @@ def make_kernel(can: CanonicalNLP, kkt_solve: Callable, opts: ALMOptions,
         theta_ref_n = torch.where(inner_done, theta_now, st.theta_ref)
         v_ref_n = torch.where(_col(inner_done), v_n, st.v_ref)
 
-        err0, viol, _, _ = _errors_at(parts_n, 0.0)
+        err0, viol, _, _ = _errors_at(parts_n, zero)
         if parts_ls is not None:
-            err0 = torch.minimum(err0, _errors_at(parts_ls, 0.0)[0])
+            err0 = torch.minimum(err0, _errors_at(parts_ls, zero)[0])
         conv = (err0 <= eff.tol) & (viol <= feas_target) & (st.phase == 1)
 
         # ---- phase-0 exit: cost-descent stall detection ----
@@ -591,7 +640,218 @@ def make_kernel(can: CanonicalNLP, kkt_solve: Callable, opts: ALMOptions,
         return _select(st.converged, st._replace(it=st.it + 1), new), ap
 
     return _Kernel(init_state=init_state, substep=substep,
-                   kkt_errors=kkt_errors, f_fn=f_fn, c_fn=c_fn)
+                   kkt_errors=kkt_errors, f_fn=f_fn, c_fn=c_fn, rebind=rebind)
+
+
+def _newton_step(kern: _Kernel, opts: ALMOptions, st: ALMState,
+                 p1: ALMParams, p2: ALMParams,
+                 phase1: Phase1 | None) -> ALMState:
+    """One solver step: a substep, then ``factor_reuse - 1`` chord
+    substeps against its factorization."""
+    st_n, ap = kern.substep(st, None, p1, p2, phase1)
+    for _ in range(max(0, opts.factor_reuse - 1)):
+        st_n, _ = kern.substep(st_n, ap, p1, p2, phase1)
+    return st_n
+
+
+def _steps_left(active: torch.Tensor, max_iter: torch.Tensor,
+                it: torch.Tensor) -> int:
+    """Steps until the last active lane reaches its budget; 0 when no lane
+    is active (one device sync)."""
+    return int(torch.where(active, max_iter - it, 0).max())
+
+
+# ---------------------------------------------------------------------------
+# the captured loop program
+# ---------------------------------------------------------------------------
+
+
+def _tensors(tree):
+    """The tensor leaves of a tree of NamedTuples, dataclasses (the
+    Instance's WindConfig) and tensors, in a fixed order."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, tuple):
+        for x in tree:
+            yield from _tensors(x)
+    elif dataclasses.is_dataclass(tree):
+        for f in dataclasses.fields(tree):
+            yield from _tensors(getattr(tree, f.name))
+
+
+def _static_copy(tree):
+    """``tree`` with every tensor leaf copied into a fresh contiguous
+    buffer; the other leaves are shared."""
+    if isinstance(tree, torch.Tensor):
+        return tree.clone(memory_format=torch.contiguous_format)
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*[_static_copy(x) for x in tree])
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{
+            f.name: _static_copy(getattr(tree, f.name))
+            for f in dataclasses.fields(tree)})
+    return tree
+
+
+def _signature(tree):
+    """What a captured program fixes of a tree: each tensor's shape, dtype
+    and device, and the value of every other leaf (the wind model's Python
+    floats, ``Phase1.patience``)."""
+    if isinstance(tree, torch.Tensor):
+        return (tuple(tree.shape), tree.dtype, str(tree.device))
+    if isinstance(tree, tuple):
+        return (type(tree).__name__,) + tuple(_signature(x) for x in tree)
+    if dataclasses.is_dataclass(tree):
+        return (type(tree).__name__,) + tuple(
+            _signature(getattr(tree, f.name)) for f in dataclasses.fields(tree))
+    return tree
+
+
+_COUNTED = crkern.KERNELS + chainkern.KERNELS   # wrappers with ``.launches``
+
+
+def _launch_counts() -> dict:
+    return {k: k.launches for k in _COUNTED}
+
+
+def _recorded_launches(before: dict) -> dict:
+    """The launches the wrappers counted since ``before`` (a capture's:
+    none of them ran), with every count set back to ``before``."""
+    delta = {k: k.launches - n for k, n in before.items() if k.launches != n}
+    for k, n in before.items():
+        k.launches = n
+    return delta
+
+
+def _add_launches(delta: dict) -> None:
+    """Count one replay of a program whose capture recorded ``delta``."""
+    for k, n in delta.items():
+        k.launches += n
+
+
+class _StepProgram:
+    """The loop's unit over static buffers: ``active = ~converged & it <
+    max_iter`` on the device, the Newton step, ``_select(active, new, st)``,
+    and the result copied back into the static state buffers, so that
+    consecutive runs chain with no host work between them.
+
+    The inputs are static buffers as well: every ALMState field, every
+    ``ALMParams``/``Phase1`` tensor and every tensor of the Instance
+    (:meth:`load` fills them by ``copy_``; the bound tensors derived from
+    the Instance are recomputed in place).  On a CUDA device the first
+    :meth:`run` is an eager step on a side stream (the warm-up: it builds
+    and loads the kernels, raises their shared-memory limits and fills the
+    cached index tensors, none of which may happen under capture); the
+    second captures the unit as a CUDA graph, and every run from then on
+    replays it.  A capture or replay that fails raises.  On the CPU the
+    unit runs eagerly, through the same code.
+
+    A capture launches nothing, so the kernel wrappers' launch counts are
+    set back after it; each replay adds the launches the capture recorded.
+    """
+
+    def __init__(self, can: CanonicalNLP, kkt_solve: Callable,
+                 opts: ALMOptions, inst, st: ALMState, p2: ALMParams,
+                 phase1: Phase1 | None):
+        self.opts = opts
+        self.inst = _static_copy(inst)
+        self.st = _static_copy(st)
+        self.p2 = _static_copy(p2)
+        self.phase1 = _static_copy(phase1)
+        self.p1 = self.phase1.params if phase1 is not None else self.p2
+        self.kern = make_kernel(can, kkt_solve, opts, self.inst, self.st.v)
+        self.graph = None
+        self.warm = False
+        self.launches: dict = {}     # one replay's launches per wrapper
+        self.capture_s = 0.0
+
+    def load(self, inst, st: ALMState, p2: ALMParams,
+             phase1: Phase1 | None) -> None:
+        """Fill the static buffers for a new solve."""
+        for bufs, tree in ((self.inst, inst), (self.st, st), (self.p2, p2),
+                           (self.phase1, phase1)):
+            for buf, x in zip(_tensors(bufs), _tensors(tree)):
+                buf.copy_(x)
+        self.kern.rebind()
+
+    def step(self) -> None:
+        """One masked step with write-back, eagerly."""
+        st = self.st
+        active = (~st.converged) & (st.it < self.p2.max_iter)
+        new = _select(active, _newton_step(self.kern, self.opts, st, self.p1,
+                                           self.p2, self.phase1), st)
+        for buf, x in zip(st, new):
+            buf.copy_(x)
+
+    def steps_left(self) -> int:
+        st = self.st
+        active = (~st.converged) & (st.it < self.p2.max_iter)
+        return _steps_left(active, self.p2.max_iter, st.it)
+
+    def run(self) -> None:
+        """One step: a replay, or eagerly on the CPU (see the class)."""
+        if self.graph is not None:
+            self.graph.replay()
+            _add_launches(self.launches)
+        elif self.st.v.device.type != "cuda":
+            self.step()
+        elif not self.warm:
+            dev = self.st.v.device
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                self.step()
+            torch.cuda.current_stream(dev).wait_stream(side)
+            self.warm = True
+        else:
+            self.capture()
+            self.run()
+
+    def capture(self) -> None:
+        """Capture :meth:`step` as a CUDA graph (reads and writes nothing
+        on the device)."""
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        before = _launch_counts()
+        try:
+            with torch.cuda.graph(graph):
+                self.step()
+        finally:
+            self.launches = _recorded_launches(before)
+        self.graph = graph
+        self.capture_s = time.perf_counter() - t0
+
+
+class ProgramCache:
+    """Step programs by (program, lanes, dtype, static structure), as
+    ``jax.jit`` keeps its loop programs: a grouped solver or a mission leg
+    solver holds one for its lifetime.  At most ``_PROGRAMS_KEPT`` are
+    kept, the least recently used dropped first."""
+
+    def __init__(self):
+        self.programs: OrderedDict = OrderedDict()
+        self._dropped_s = 0.0
+        self._dropped_n = 0
+
+    def get(self, key, make: Callable) -> _StepProgram:
+        prog = self.programs.pop(key, None)
+        self.programs[key] = prog if prog is not None else make()
+        while len(self.programs) > _PROGRAMS_KEPT:
+            _, old = self.programs.popitem(last=False)
+            self._dropped_s += old.capture_s
+            self._dropped_n += old.graph is not None
+        return self.programs[key]
+
+    @property
+    def capture_s(self) -> float:
+        """Seconds spent capturing graphs, dropped programs included."""
+        return self._dropped_s + sum(p.capture_s
+                                     for p in self.programs.values())
+
+    @property
+    def captures(self) -> int:
+        return self._dropped_n + sum(p.graph is not None
+                                     for p in self.programs.values())
 
 
 def solve(can: CanonicalNLP, kkt_solve: Callable,
@@ -599,7 +859,8 @@ def solve(can: CanonicalNLP, kkt_solve: Callable,
           v0: torch.Tensor | None = None, y0: torch.Tensor | None = None,
           params: ALMParams | None = None, phase1: Phase1 | None = None,
           state0: ALMState | None = None,
-          keep_state: bool = False) -> ALMResult:
+          keep_state: bool = False, _loop: str | None = None,
+          _programs: ProgramCache | None = None) -> ALMResult:
     """Solve B lanes of one canonical NLP instance in lock-step.
 
     ``v0`` (B, n) seeds (default: one lane at ``can.initial_point``);
@@ -611,6 +872,13 @@ def solve(can: CanonicalNLP, kkt_solve: Callable,
     ``result.trace`` holds, per step, ``(kkt_err, mu, gamma, delta_w,
     constraint violation, f)`` as six (B, ``opts.max_iter``) tensors; a
     finished lane repeats its last values.
+
+    On a CUDA device the steps run as a captured program
+    (:class:`_StepProgram`) taken from ``_programs`` (a cache of this call
+    alone when None); on the CPU, and with ``opts.trace`` or
+    ``opts.verbose``, the eager loop runs.  ``_loop`` ("eager" or
+    "program"; private) overrides the choice, for comparisons: "program"
+    on the CPU runs the program's unit eagerly.
     """
     # The counterpart of jax.default_matmul_precision("highest"): every
     # float32 product of the Newton pipeline runs in full float32.
@@ -627,16 +895,15 @@ def solve(can: CanonicalNLP, kkt_solve: Callable,
     p1 = phase1.params if phase1 is not None else p2
 
     kern = make_kernel(can, kkt_solve, opts, inst, v0, y0)
-
-    def step(st: ALMState) -> ALMState:
-        st_n, ap = kern.substep(st, None, p1, p2, phase1)
-        for _ in range(max(0, opts.factor_reuse - 1)):
-            st_n, _ = kern.substep(st_n, ap, p1, p2, phase1)
-        return st_n
-
     st = (kern.init_state(p1 if phase1 is not None else p2, p2,
                           phase1 is not None)
           if state0 is None else state0)
+
+    loop = _loop or ("program" if dev.type == "cuda" else "eager")
+    if opts.trace or opts.verbose:
+        loop = "eager"
+    if loop not in ("eager", "program"):
+        raise ValueError(f"unknown loop {loop!r}")
 
     def record(st: ALMState):
         return (st.kkt_err, st.mu, st.gamma, st.delta_w,
@@ -644,18 +911,34 @@ def solve(can: CanonicalNLP, kkt_solve: Callable,
 
     records = [] if opts.trace else None
     until_check = 0
-    while True:
+    if loop == "program":
+        programs = _programs if _programs is not None else ProgramCache()
+        key = (id(can), id(kkt_solve), opts,
+               _signature((inst, st, p2, phase1)))
+        prog = programs.get(key, lambda: _StepProgram(
+            can, kkt_solve, opts, inst, st, p2, phase1))
+        prog.load(inst, st, p2, phase1)
+        while True:
+            if until_check == 0:
+                left = prog.steps_left()
+                if left == 0:
+                    break
+                until_check = min(_CHECK_EVERY, left)
+            prog.run()
+            until_check -= 1
+        st = ALMState(*[x.clone() for x in prog.st])
+    while loop == "eager":
         active = (~st.converged) & (st.it < p2.max_iter)
         if opts.trace and len(records) == opts.max_iter:
             break
         if until_check == 0:
-            if not bool(active.any()):
-                break
             # no lane can run past its budget: check again no later than
             # when the last active lane reaches max_iter
-            left = int((p2.max_iter - st.it)[active].max())
+            left = _steps_left(active, p2.max_iter, st.it)
+            if left == 0:
+                break
             until_check = min(_CHECK_EVERY, left)
-        st = _select(active, step(st), st)
+        st = _select(active, _newton_step(kern, opts, st, p1, p2, phase1), st)
         if opts.trace:
             records.append(record(st))
         until_check -= 1

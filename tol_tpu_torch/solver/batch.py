@@ -7,6 +7,12 @@ into ``drain_size``-lane chunks that resume exactly (ALMState handoff) and
 finish the full per-lane budget.  With ``dive_opts`` each group runs the
 two-body program: a fixed-length exploration dive (``dive_opts`` /
 ``dive_kkt``), :func:`phase_switch_state`, then the endgame.
+
+The dive, the endgame and the drain are step programs, as the JAX package
+jits ``run_dive``, ``run_end`` and ``run_drain``: on the card each is a
+CUDA graph captured on its first use and replayed for every group, chunk,
+budget and airframe of the same structure (``solve.programs``, an
+:class:`~tol_tpu_torch.solver.alm.ProgramCache`).
 """
 
 from __future__ import annotations
@@ -17,7 +23,8 @@ import numpy as np
 import torch
 
 from tol_tpu_torch.solver.alm import (ALMOptions, ALMParams, ALMState, Phase1,
-                                      phase_switch_state, solve as alm_solve)
+                                      ProgramCache, phase_switch_state,
+                                      solve as alm_solve)
 from tol_tpu_torch.solver.canonical import CanonicalNLP
 
 
@@ -41,7 +48,8 @@ def make_grouped_solver(can: CanonicalNLP, kkt_solve: Callable,
                         opts: ALMOptions, group_size: int = 256,
                         drain_size: int = 128,
                         dive_opts: ALMOptions | None = None,
-                        dive_kkt: Callable | None = None) -> Callable:
+                        dive_kkt: Callable | None = None,
+                        _loop: str | None = None) -> Callable:
     """Build the grouped solver.  Returns
 
         solve(group_insts, insts, v0s, p1, p2, p2_drain, n1, exit_df)
@@ -54,32 +62,37 @@ def make_grouped_solver(can: CanonicalNLP, kkt_solve: Callable,
     (``p2.max_iter`` = the group cap), ``p2_drain`` the drain params
     (``max_iter`` = the full per-lane budget).  In the two-body program the
     dive runs exactly ``n1`` iterations and ``exit_df`` is ignored.
+
+    ``_loop`` (private) is passed to every ``alm.solve``: "eager" runs the
+    eager loop on the card, for comparisons.
     """
     GB, DB = group_size, drain_size
     two_body = dive_opts is not None
     kkt_dive = dive_kkt if dive_kkt is not None else kkt_solve
+    programs = ProgramCache()
+    loop_kw = dict(_loop=_loop, _programs=programs, keep_state=True)
 
     def run_dive(inst, v0s, p1, p2, n_max):
         p1d = p1._replace(max_iter=n_max)
         out = alm_solve(can, kkt_dive, dive_opts, inst=inst, v0=v0s,
-                        params=p1d, keep_state=True)
+                        params=p1d, **loop_kw)
         return phase_switch_state(can, out.state, p2, inst)
 
     def run_end(inst, st, p2):
         return alm_solve(can, kkt_solve, opts, inst=inst, params=p2,
-                         state0=st, keep_state=True)
+                         state0=st, **loop_kw)
 
     def run_group(inst, v0s, p1, p2, n_max, exit_df):
         if two_body:
             return run_end(inst, run_dive(inst, v0s, p1, p2, n_max), p2)
         ph = Phase1(params=p1, n_max=n_max, exit_df=exit_df, patience=3)
         return alm_solve(can, kkt_solve, opts, inst=inst, v0=v0s, params=p2,
-                         phase1=ph, keep_state=True)
+                         phase1=ph, **loop_kw)
 
     def run_drain(inst, st, p1, p2, n_max, exit_df):
         ph = Phase1(params=p1, n_max=n_max, exit_df=exit_df, patience=3)
         return alm_solve(can, kkt_solve, opts, inst=inst, params=p2,
-                         phase1=ph, state0=st)
+                         phase1=ph, state0=st, **loop_kw)
 
     def solve(group_insts: Sequence, insts, v0s, p1: ALMParams,
               p2: ALMParams, p2_drain: ALMParams, n1, exit_df) -> GroupedResult:
@@ -132,4 +145,6 @@ def make_grouped_solver(can: CanonicalNLP, kkt_solve: Callable,
                              drain_iters)
 
     solve.run_group = run_group
+    solve.run_dive, solve.run_end, solve.run_drain = run_dive, run_end, run_drain
+    solve.programs = programs
     return solve

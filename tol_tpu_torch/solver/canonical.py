@@ -219,6 +219,9 @@ def canonicalize(nlp: CollocationNLP,
     slack_scatter_np = np.zeros((nlp.nb, n_slack))
     for j, r in enumerate(ineq_idx):
         slack_scatter_np[r, j] = 1.0
+    # on the device once: c() runs inside every step (and a captured one)
+    slack_scatter = torch.as_tensor(slack_scatter_np, dtype=dtype,
+                                    device=device)
 
     def split(v):
         Z = v[..., 1:1 + (T + 1) * NUM_VARS].reshape(*v.shape[:-1], T + 1,
@@ -235,7 +238,7 @@ def canonicalize(nlp: CollocationNLP,
         d = d.reshape(*d.shape[:-2], -1)
         b = nlp.boundary(Z[..., 0, :], Z[..., -1, :], dt, inst)
         if n_slack:
-            G = torch.as_tensor(slack_scatter_np, dtype=v.dtype, device=v.device)
+            G = slack_scatter.to(dtype=v.dtype, device=v.device)
             b = b + (s[..., None, :] * G).sum(-1)
         return torch.cat([d, b], dim=-1)
 

@@ -108,6 +108,9 @@ def make_condensed_kkt(can: CanonicalNLP, refine: int = 2, chain: str = "crp"):
     Gs_np = np.zeros((nb, n_s))
     for j, r in enumerate(ineq_idx):
         Gs_np[r, j] = 1.0
+    # on the device once: prepare() runs inside every step
+    z_lo0 = nlp.inst0.z_lo
+    Gs_dev = torch.as_tensor(Gs_np, dtype=z_lo0.dtype, device=z_lo0.device)
 
     node_hess, border_hess, defect_jac, bnd_jac = derivative_blocks(nlp)
 
@@ -162,7 +165,7 @@ def make_condensed_kkt(can: CanonicalNLP, refine: int = 2, chain: str = "crp"):
         Hb = border_hess(ub_pt, w, inst)
         G0, GT, Gdt = bnd_jac(Z[:, 0], Z[:, -1], dt, inst)
         G0 = G0 * m0
-        Gs = tt(Gs_np)
+        Gs = Gs_dev.to(dtype=dtype, device=dev)
         A = torch.cat([A[:, :1] * m0, A[:, 1:]], dim=1)
 
         mm0 = torch.outer(m0, m0)
