@@ -95,7 +95,8 @@ Phases, each of which must pass (any failure exits non-zero and prints no
              graph and replayed).  s10's and the storm's first 128-lane
              group through the grouped solver's dive, phase switch,
              endgame and drain (of the whole group), and the s10_seqdive
-             dive, each eagerly (``_loop="eager"``) and captured: per
+             dive, at the depth ``GRAPH_DEPTH`` (dive 8, group cap 16,
+             budget 24), each eagerly (``_loop="eager"``) and captured: per
              ALMState field after each stage, equal bits or the largest
              difference; the launches of both runs; ms per step of both;
              per program its replay against the same unit run eagerly,
@@ -108,6 +109,29 @@ Phases, each of which must pass (any failure exits non-zero and prints no
              and drain chunks of 128), gated at 1008/1024.  Every solve
              phase above runs captured as well: on the card ``alm.solve``
              replays its step programs unless told otherwise.
+   paths   — the JAX package's other solve paths, as captured programs.
+             Ten programs (the structured and the dense KKT, the condensed
+             KKT's plain chains scan, cr and spike, wind models 2, 4 and 5,
+             the storm's onehot and gather lowerings), each through its
+             first group's dive, switch, endgame and drain at the depth
+             ``PATHS_DEPTH`` eagerly and captured: every ALMState field
+             bit-equal, equal launches, and exactly the hand kernels of
+             the path launched (K1-K3 for the crp paths, none for the
+             plain ones); the dense KKT at ts=24 and 8 lanes, the rest at
+             ts=100 and 128.  Then full-width solves (128 lanes, ts=100,
+             bench.py's constants): cr, onehot and gather gated as s10
+             and storm are (>= 90%), scan, spike and the structured KKT
+             on converged and feasible lanes (>= 90%; the cost gap
+             reported), wind models 2, 4 and 5 with lane 0 at the initial
+             point converged within 1e-2 of the JAX package's cost
+             (``tests/golden_wind*_ts100.npy``).  A traced crp dive
+             (``ALMOptions.trace``, 64 steps) eagerly and captured: the
+             six records bit-equal.  ``Mission(MissionConfig()).run`` on
+             ``MISSION_GOAL``: the legs' types and converged flags of the
+             JAX package's own float32 run (``tests/golden_mission_
+             ts100.json``), one capture per mission type.  The
+             structured KKT's Jacobi alone, captured at a ts=100 step's
+             shape: replay ms, device busy time, kernel nodes.
 5. profile — one dive (crp and sequential) and one endgame iteration of 128
              lanes under torch.profiler, and one storm endgame iteration:
              host wall, device busy time and idle share, the hand-written
@@ -808,6 +832,16 @@ MISSIONS = {
                   reference="golden_storm_ts100.npy", bench_lanes=256,
                   wind=3, endgame_ls=4),
 }
+# the paths phase's problems: S10 under wind models 2, 4 and 5 (each
+# against the JAX package's lane from the initial point,
+# tests/make_wind_goldens.py; lane 0 starts there), the storm on its
+# onehot and gather lowerings, and S10 at ts=24 for the dense KKT
+for _k in (2, 4, 5):
+    MISSIONS[f"wind{_k}"] = dict(MISSIONS["S10"], wind=_k, clean_lane0=True,
+                                 reference=f"golden_wind{_k}_ts100.npy")
+for _interp in ("onehot", "gather"):
+    MISSIONS[f"storm_{_interp}"] = dict(MISSIONS["storm"], interp=_interp)
+MISSIONS["S10_ts24"] = dict(MISSIONS["S10"], ts=24, reference=None)
 STORM_DATUM = dict(east0=17400.0, north0=25800.0, up0=200.0)
 
 
@@ -827,11 +861,12 @@ def make_mission(torch, key, lanes, dev):
     if wind_model == 3:
         # the grid's origin and spacing in float32, as bench.py has them
         # with x64 off
-        wind = WindConfig(model=3, order=2, interp="auto", **STORM_DATUM,
+        wind = WindConfig(model=3, order=2, interp=spec.get("interp", "auto"),
+                          **STORM_DATUM,
                           grid=make_demo_storm_grid(dtype=torch.float32,
                                                     device=dev))
-    nlp = make_problem(spec["mission"], aircraft=spec["aircraft"], ts=TS,
-                       wind_model=wind_model, wind=wind,
+    nlp = make_problem(spec["mission"], aircraft=spec["aircraft"],
+                       ts=spec.get("ts", TS), wind_model=wind_model, wind=wind,
                        dtype=torch.float32, device=dev)
     can = canonicalize(nlp, scaling="auto")
     end = dict(tol=5e-3, feas_tol=1e-4, **spec["endgame"])
@@ -840,8 +875,14 @@ def make_mission(torch, key, lanes, dev):
     lb, ub, fixed = can.bounds(inst0)
     gen = torch.Generator(device="cpu").manual_seed(spec["noise_seed"])
     dv = 0.01 * torch.randn(lanes, can.n, generator=gen).to(dev)
-    ref = torch.tensor(np.load(os.path.join(HERE, "tests", spec["reference"])),
-                       dtype=torch.float32, device=dev)
+    if spec.get("clean_lane0"):
+        dv[0] = 0.0
+    f_ref = None
+    if spec["reference"] is not None:
+        ref = torch.tensor(np.load(os.path.join(HERE, "tests",
+                                                spec["reference"])),
+                           dtype=torch.float32, device=dev)
+        f_ref = float(can.f(can.from_physical(ref), inst0))
     return dict(
         mission=spec["mission"], spec=spec, can=can, wind_model=wind_model,
         opts=ALMOptions(max_iter=2000, dual_refine_k=4,
@@ -854,21 +895,39 @@ def make_mission(torch, key, lanes, dev):
                    prox=0.0, gamma_eager=0.0, max_iter=spec["budget"]),
         v0s=torch.where(fixed, lb,
                         torch.minimum(torch.maximum(v0 + dv, lb), ub)),
-        f_ref=float(can.f(can.from_physical(ref), inst0)))
+        f_ref=f_ref)
 
 
-def run_solve(torch, ck, ch, path, ctx, lanes, dive_chain, expect):
+def make_kkts(can, dive_chain, end_chain="crp"):
+    """(endgame KKT, dive KKT): the condensed KKT on a chain (refine=1 in
+    the endgame, 0 in the dive, as bench.py has them), or the
+    "structured" or "dense" KKT."""
+    from tol_tpu_torch.solver.kkt_condensed import make_condensed_kkt
+    from tol_tpu_torch.solver.kkt_dense import make_dense_kkt
+    from tol_tpu_torch.solver.kkt_structured import make_structured_kkt
+
+    def kkt(chain, refine):
+        if chain == "structured":
+            return make_structured_kkt(can)
+        if chain == "dense":
+            return make_dense_kkt(can)
+        return make_condensed_kkt(can, refine=refine, chain=chain)
+    return kkt(end_chain, 1), kkt(dive_chain, 0)
+
+
+def run_solve(torch, ck, ch, path, ctx, lanes, dive_chain, expect,
+              end_chain="crp", phase="solve", extra=None):
     """Drive one path through the grouped solver with the launch counts at 0
     just before and read just after.  Returns (record, launches, gap); every
     kernel named in ``expect`` must have been launched."""
     from tol_tpu_torch.solver.batch import make_grouped_solver
-    from tol_tpu_torch.solver.kkt_condensed import make_condensed_kkt
 
     can, spec = ctx["can"], ctx["spec"]
+    kkt_end, kkt_dive = make_kkts(can, dive_chain, end_chain)
     gsolve = make_grouped_solver(
-        can, make_condensed_kkt(can, refine=1, chain="crp"), ctx["opts"],
+        can, kkt_end, ctx["opts"],
         group_size=B_LANES, drain_size=B_LANES, dive_opts=ctx["dive_opts"],
-        dive_kkt=make_condensed_kkt(can, refine=0, chain=dive_chain))
+        dive_kkt=kkt_dive)
     _reset_launch_counts(ck, ch)
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
@@ -887,11 +946,11 @@ def run_solve(torch, ck, ch, path, ctx, lanes, dive_chain, expect):
     gap = (res.f - ctx["f_ref"]) / max(abs(ctx["f_ref"]), 1e-9)
     feasible = res.constr_viol < 1e-4
     rec = dict(
-        phase="solve", path=path, mission=ctx["mission"],
+        phase=phase, path=path, mission=ctx["mission"],
         aircraft=spec["aircraft"], wind_model=ctx["wind_model"], ts=TS,
         dtype="float32",
         n=can.n, m=can.m, slacks=can.n_slack, lanes=lanes, group=B_LANES,
-        drain=B_LANES, dive_chain=dive_chain, endgame_chain="crp",
+        drain=B_LANES, dive_chain=dive_chain, endgame_chain=end_chain,
         endgame_trials=ctx["opts"].max_ls,
         reduced=([f"lanes {spec['bench_lanes']} -> {lanes}"]
                  if lanes < spec["bench_lanes"] else []),
@@ -906,7 +965,8 @@ def run_solve(torch, ck, ch, path, ctx, lanes, dive_chain, expect):
         group_iters=res.group_iters, drain_iters=res.drain_iters,
         wall_s=wall, launches=launches, captures=gsolve.programs.captures,
         capture_s=gsolve.programs.capture_s,
-        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+        **(extra or {}))
     rec["ms_per_iteration"] = 1e3 * wall / (res.group_iters + res.drain_iters)
     print(json.dumps(rec), flush=True)
     _require(all(launches[k] > 0 for k in expect),
@@ -1289,7 +1349,7 @@ def run_utils(torch, ck, ch, timer, s10_v, par, ctx):
                                                    chain=chain),
                            opts, can.nlp.inst0, v0s)
         st = kern.init_state(p, p, False)
-        for _ in range(6):
+        for _ in range(PROFILE_WARM_STEPS):
             st, _ = kern.substep(st, None, p, p, None)
         torch.cuda.synchronize()
         # the untraced window: the same step from the same state, repeated
@@ -1341,6 +1401,8 @@ def run_utils(torch, ck, ch, timer, s10_v, par, ctx):
 
 GRAPH_REPLAYS = 20      # replays timed per program
 GRAPH_EAGER_STEPS = 3   # eager steps of the same unit timed per program
+GRAPH_DEPTH = (8, 16, 24)    # the eager comparison: dive, group cap, budget
+PROFILE_WARM_STEPS = 2       # substeps from the seeds before a profiled step
 BENCH_GATE = 1008       # config 1: the reference's round-5 count of 1024
 
 
@@ -1365,10 +1427,11 @@ def _field_diff(torch, a, b) -> dict:
     return out
 
 
-def replay_profile(torch, prog) -> dict:
+def replay_profile(torch, prog, replays=GRAPH_REPLAYS,
+                   eager_steps=GRAPH_EAGER_STEPS) -> dict:
     """A captured step program's replay: its wall by the host clock over
-    ``GRAPH_REPLAYS`` replays, beside the same unit run eagerly
-    (``GRAPH_EAGER_STEPS`` steps); then one replay under torch.profiler:
+    ``replays`` replays, beside the same unit run eagerly (``eager_steps``
+    steps); then one replay under torch.profiler:
     device busy time and the hand-written kernels' share of it, the idle
     share of the untraced replay's wall (busy over that wall, whose busy
     time is the traced replay's and runs a little long: clamped at 0),
@@ -1380,15 +1443,17 @@ def replay_profile(torch, prog) -> dict:
 
     torch.cuda.synchronize()
     t0 = time.time()
-    for _ in range(GRAPH_REPLAYS):
+    for _ in range(replays):
         prog.run()
     torch.cuda.synchronize()
-    replay_ms = 1e3 * (time.time() - t0) / GRAPH_REPLAYS
-    t0 = time.time()
-    for _ in range(GRAPH_EAGER_STEPS):
-        prog.step()
-    torch.cuda.synchronize()
-    eager_ms = 1e3 * (time.time() - t0) / GRAPH_EAGER_STEPS
+    replay_ms = 1e3 * (time.time() - t0) / replays
+    eager_ms = None
+    if eager_steps:
+        t0 = time.time()
+        for _ in range(eager_steps):
+            prog.step()
+        torch.cuda.synchronize()
+        eager_ms = 1e3 * (time.time() - t0) / eager_steps
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         prog.run()
@@ -1457,26 +1522,27 @@ def _stage_runs(torch, g, ctx, lanes, stages):
     return states, secs, steps
 
 
-def compare_programs(torch, ck, ch, path, ctx, dive_chain, stages):
-    """One 128-lane group through the grouped solver's dive, switch,
+def compare_programs(torch, ck, ch, path, ctx, dive_chain, stages,
+                     end_chain="crp", lanes=B_LANES, phase="graph",
+                     reduced=(), replays=GRAPH_REPLAYS,
+                     eager_steps=GRAPH_EAGER_STEPS,
+                     profiled=("dive", "endgame", "drain")):
+    """One group of ``lanes`` through the grouped solver's dive, switch,
     endgame and drain, eagerly and through the captured programs: the bits
     of every ALMState field after each stage, the launches of both runs,
     ms per step of each, and each program's replay profile."""
     from tol_tpu_torch.solver.batch import make_grouped_solver
-    from tol_tpu_torch.solver.kkt_condensed import make_condensed_kkt
 
     can = ctx["can"]
     runs = {}
     for loop in ("eager", "program"):
+        kkt_end, kkt_dive = make_kkts(can, dive_chain, end_chain)
         g = make_grouped_solver(
-            can, make_condensed_kkt(can, refine=1, chain="crp"),
-            ctx["opts"], group_size=B_LANES, drain_size=B_LANES,
-            dive_opts=ctx["dive_opts"],
-            dive_kkt=make_condensed_kkt(can, refine=0, chain=dive_chain),
-            _loop=loop)
+            can, kkt_end, ctx["opts"], group_size=lanes, drain_size=lanes,
+            dive_opts=ctx["dive_opts"], dive_kkt=kkt_dive, _loop=loop)
         _reset_launch_counts(ck, ch)
         torch.cuda.reset_peak_memory_stats()
-        states, secs, steps = _stage_runs(torch, g, ctx, B_LANES, stages)
+        states, secs, steps = _stage_runs(torch, g, ctx, lanes, stages)
         runs[loop] = dict(states=states, secs=secs, steps=steps, g=g,
                           launches=_launch_counts(ck, ch),
                           peak_gib=torch.cuda.max_memory_allocated() / 2**30)
@@ -1489,10 +1555,13 @@ def compare_programs(torch, ck, ch, path, ctx, dive_chain, stages):
         kind = ("drain" if prog.phase1 is not None
                 else "dive" if prog.opts == ctx["dive_opts"] else "endgame")
         # a stage of fewer than two steps captures nothing
-        profiles[kind] = (replay_profile(torch, prog) if prog.graph is not None
-                          else "not captured")
+        profiles[kind] = (
+            "not captured" if prog.graph is None
+            else replay_profile(torch, prog, replays, eager_steps)
+            if kind in profiled else dict(capture_s=prog.capture_s))
     rec = dict(
-        phase="graph", path=path, lanes=B_LANES, dive_chain=dive_chain,
+        phase=phase, path=path, lanes=lanes, dive_chain=dive_chain,
+        endgame_chain=end_chain, ts=can.nlp.T, reduced=list(reduced),
         stages=list(eager["states"]), steps=eager["steps"],
         bits_equal={st: all(v == "equal" for v in d.values())
                     for st, d in bits.items()},
@@ -1559,12 +1628,18 @@ def run_graph(torch, ck, ch, dev):
     captured.  Returns the launches of the captured runs."""
     s10 = make_mission(torch, "S10", B_LANES, dev)
     storm = make_mission(torch, "storm", B_LANES, dev)
-    recs = [compare_programs(torch, ck, ch, "s10", s10, "crp",
-                             ("dive", "endgame")),
-            compare_programs(torch, ck, ch, "storm", storm, "crp",
-                             ("dive", "endgame")),
-            compare_programs(torch, ck, ch, "s10_seqdive", s10, "pallas",
-                             ("dive",))]
+    cut = lambda ctx: (_cut(torch, ctx, *GRAPH_DEPTH),
+                       [_depth_note(ctx["spec"], GRAPH_DEPTH)])
+    (s10c, s10_note), (stormc, storm_note) = cut(s10), cut(storm)
+    # the eager step's time is the comparison's own: no more eager steps
+    recs = [compare_programs(torch, ck, ch, "s10", s10c, "crp",
+                             ("dive", "endgame"), reduced=s10_note,
+                             eager_steps=0),
+            compare_programs(torch, ck, ch, "storm", stormc, "crp",
+                             ("dive", "endgame"), reduced=storm_note,
+                             eager_steps=0),
+            compare_programs(torch, ck, ch, "s10_seqdive", s10c, "pallas",
+                             ("dive",), reduced=s10_note, eager_steps=0)]
     launches = {k: sum(r["launches"]["graph"][k] for r in recs)
                 for k in KERNELS}
     for r in recs:
@@ -1572,7 +1647,8 @@ def run_graph(torch, ck, ch, dev):
         want = ((CHAIN_KERNELS if r["dive_chain"] == "pallas"
                  else CR_PASS_KERNELS)
                 + (CR_PASS_KERNELS if "endgame" in r["stages"] else ()))
-        profs = [p for p in r["replay"].values() if isinstance(p, dict)]
+        profs = [p for p in r["replay"].values()
+                 if isinstance(p, dict) and "kernel_nodes" in p]
         named = {k for p in profs for k in p["hand_kernels_in_replay"]}
         _require(set(want) <= named
                  or all(p["kernel_nodes"] is None for p in profs),
@@ -1583,12 +1659,334 @@ def run_graph(torch, ck, ch, dev):
 
 
 # ---------------------------------------------------------------------------
+# the paths phase: the JAX package's other solve paths as captured programs
+# ---------------------------------------------------------------------------
+
+PATHS_DEPTH = (3, 6, 9)     # the eager comparison: dive, group cap, budget
+PATHS_REPLAYS = 5           # replays timed of each path's endgame program
+DENSE_LANES = 8             # the dense KKT's group, at ts=24 (its O((n+m)^3)
+                            # oracle is meant for small horizons)
+TRACE_ITERS = 64            # steps of the traced dive
+# the default mission's goal: east, north, up of the ring's centre and its
+# radius; FakeAutopilot starts about (96, 170) m from the datum (as
+# tests/make_mission_golden.py)
+MISSION_GOAL = (275.0, 170.0, 0.0, 100.0)
+# path: (problem, dive chain, endgame chain, the hand kernels it launches)
+PATHS = {
+    "structured": ("S10", "structured", "structured", ()),
+    "dense": ("S10_ts24", "dense", "dense", ()),
+    "scan": ("S10", "scan", "scan", ()),
+    "cr": ("S10", "cr", "cr", ()),
+    "spike": ("S10", "spike", "spike", ()),
+    "wind2": ("wind2", "crp", "crp", CR_PASS_KERNELS),
+    "wind4": ("wind4", "crp", "crp", CR_PASS_KERNELS),
+    "wind5": ("wind5", "crp", "crp", CR_PASS_KERNELS),
+    "storm_onehot": ("storm_onehot", "crp", "crp", CR_PASS_KERNELS),
+    "storm_gather": ("storm_gather", "crp", "crp", CR_PASS_KERNELS),
+}
+# the paths solved at full width (the dense KKT is the oracle of small
+# horizons: its eager comparison at ts=24 is its whole share)
+SOLVE_PATHS = ("cr", "scan", "spike", "structured", "wind2", "wind4",
+               "wind5", "storm_onehot", "storm_gather")
+
+
+def _depth_note(spec, depth) -> str:
+    n1, cap, budget = depth
+    return (f"dive {spec['n1']} -> {n1}, cap {spec['cap']} -> {cap}, "
+            f"budget {spec['budget']} -> {budget}")
+
+
+def _cut(torch, ctx, n1, cap, budget):
+    """``ctx`` with its dive, group cap and budget cut to these."""
+    i32 = lambda n: torch.tensor(n, dtype=torch.int32,
+                                 device=ctx["v0s"].device)
+    return dict(ctx, spec=dict(ctx["spec"], n1=n1, cap=cap, budget=budget),
+                p1=ctx["p1"]._replace(max_iter=i32(budget)),
+                p2=ctx["p2"]._replace(max_iter=i32(cap)),
+                p2d=ctx["p2d"]._replace(max_iter=i32(budget)))
+
+
+def _launched(launches) -> list:
+    return sorted(k for k, n in launches.items() if n)
+
+
+def _path_kernels_ok(path, launches, want):
+    """A path launches every hand kernel of its chain and no other."""
+    _require(set(_launched(launches)) == set(want),
+             f"{path}: launched {_launched(launches)}, its path has "
+             f"{sorted(want)}")
+
+
+def run_paths_compare(torch, ck, ch, dev) -> dict:
+    """Each path's first group through dive, switch, endgame and drain,
+    eagerly and captured, at the depth ``PATHS_DEPTH``: every ALMState
+    field bit-equal after every stage, the launches equal.  Returns the
+    captured runs' launches."""
+    n1, cap, budget = PATHS_DEPTH
+    total = {k: 0 for k in KERNELS}
+    for path, (key, dive_chain, end_chain, want) in PATHS.items():
+        lanes = DENSE_LANES if path == "dense" else B_LANES
+        spec = MISSIONS[key]
+        ctx = _cut(torch, make_mission(torch, key, lanes, dev), n1, cap,
+                   budget)
+        rec = compare_programs(
+            torch, ck, ch, path, ctx, dive_chain, ("dive", "endgame"),
+            end_chain=end_chain, lanes=lanes, phase="paths",
+            reduced=[_depth_note(spec, PATHS_DEPTH)],
+            replays=PATHS_REPLAYS, eager_steps=0, profiled=("endgame",))
+        _require(all(rec["bits_equal"].values()),
+                 f"paths {path}: captured bits differ from eager: "
+                 f"{rec['fields']}")
+        _require(rec["launches_equal"],
+                 f"paths {path}: launches differ: {rec['launches']}")
+        _path_kernels_ok(path, rec["launches"]["graph"], want)
+        for k in KERNELS:
+            total[k] += rec["launches"]["graph"][k]
+    return total
+
+
+def _golden_wind() -> dict:
+    with open(os.path.join(HERE, "tests", "golden_wind_ts100.json")) as fh:
+        return json.load(fh)["models"]
+
+
+def run_paths_solves(torch, ck, ch, dev) -> dict:
+    """The full-width solves of the paths, captured, 128 lanes at ts=100
+    with bench.py's constants.  Returns their launches."""
+    total = {k: 0 for k in KERNELS}
+    goldens = _golden_wind()
+    for path in SOLVE_PATHS:
+        key, dive_chain, end_chain, want = PATHS[path]
+        ctx = make_mission(torch, key, B_LANES, dev)
+        extra = dict(kernels_on_path=list(want) or "none: plain torch")
+        rec, launches, gap = run_solve(
+            torch, ck, ch, path, ctx, B_LANES, dive_chain, want,
+            end_chain=end_chain, phase="paths_solve", extra=extra)
+        _path_kernels_ok(path, launches, want)
+        n = B_LANES
+        if path in ("cr", "storm_onehot", "storm_gather"):
+            # gated as s10 and storm are, against their goldens
+            _require(rec["gated_pass_with_cost_gap"] >= 0.9 * n,
+                     f"{path} gate: {rec['gated_pass_with_cost_gap']}/{n} "
+                     "lanes pass (< 90%)")
+        elif path in ("scan", "spike", "structured"):
+            # a sequential order fails the cost gate in float32: not gated
+            _require(rec["converged_and_feasible"] >= 0.9 * n,
+                     f"{path}: {rec['converged_and_feasible']}/{n} lanes "
+                     "converged and feasible (< 90%)")
+        else:
+            res = ctx["results"][path]
+            gold = goldens[path[len("wind"):]]
+            lane0 = dict(converged=bool(res.converged[0]),
+                         constr_viol=float(res.constr_viol[0]),
+                         f=float(res.f[0]), iterations=int(res.iterations[0]),
+                         cost_gap=float(gap[0]))
+            print(json.dumps(dict(
+                phase="paths_wind", path=path, lane0=lane0,
+                golden=dict(f=ctx["f_ref"], iterations=gold["iterations"],
+                            converged=gold["converged"],
+                            source="tests/golden_wind_ts100.json (JAX, "
+                                   "float64, CPU)"),
+                converged=rec["converged"], median_iters=rec["median_iters"],
+                limit="lane 0 converged, cost within 1e-2 of the golden")),
+                flush=True)
+            _require(lane0["converged"] and abs(lane0["cost_gap"]) < 1e-2,
+                     f"{path}: lane 0 {lane0} against the golden")
+        for k in KERNELS:
+            total[k] += launches[k]
+    return total
+
+
+def run_paths_trace(torch, ck, ch, dev) -> dict:
+    """``ALMOptions.trace`` on the card: s10's crp dive of 128 lanes with
+    ``TRACE_ITERS`` traced steps, eagerly and captured: the six records,
+    every result and state field and the launches equal.  Returns the
+    captured run's launches."""
+    from tol_tpu_torch.solver.alm import ProgramCache, solve
+
+    ctx = make_mission(torch, "S10", B_LANES, dev)
+    can = ctx["can"]
+    opts = ctx["dive_opts"]._replace(trace=True, max_iter=TRACE_ITERS)
+    runs = {}
+    for loop in ("eager", "program"):
+        _, kkt = make_kkts(can, "crp")
+        cache = ProgramCache()
+        _reset_launch_counts(ck, ch)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        res = solve(can, kkt, opts, v0=ctx["v0s"], params=ctx["p1"],
+                    keep_state=True, _loop=loop, _programs=cache)
+        torch.cuda.synchronize()
+        runs[loop] = dict(res=res, wall=time.time() - t0,
+                          launches=_launch_counts(ck, ch),
+                          captures=cache.captures)
+    e, g = runs["eager"]["res"], runs["program"]["res"]
+    names = ("kkt_err", "mu", "gamma", "delta_w", "constr_viol", "f")
+    records = {k: _same_bits(torch, a, b)
+               for k, a, b in zip(names, g.trace, e.trace)}
+    state = _field_diff(torch, g.state, e.state)
+    rec = dict(
+        phase="paths_trace", path="s10 crp dive, trace=True", lanes=B_LANES,
+        steps=TRACE_ITERS, shape=list(g.trace[0].shape),
+        records_equal=records, state=state,
+        launches=dict(eager=runs["eager"]["launches"],
+                      graph=runs["program"]["launches"]),
+        wall_s={k: r["wall"] for k, r in runs.items()},
+        ms_per_step={k: 1e3 * r["wall"] / TRACE_ITERS
+                     for k, r in runs.items()},
+        captures=runs["program"]["captures"])
+    print(json.dumps(rec), flush=True)
+    _require(all(records.values())
+             and all(v == "equal" for v in state.values()),
+             f"paths trace: captured differs from eager: {records} {state}")
+    _require(rec["launches"]["eager"] == rec["launches"]["graph"],
+             "paths trace: launches differ")
+    _require(rec["captures"] == 1, "paths trace: not one captured program")
+    _path_kernels_ok("trace", rec["launches"]["graph"], CR_PASS_KERNELS)
+    return rec["launches"]["graph"]
+
+
+def run_paths_mission(torch, ck, ch) -> dict:
+    """``Mission(MissionConfig()).run`` on the card with ``FakeAutopilot``:
+    ts=100, one lane per leg on chain "cr", warm starts with a cold retry.
+    At least two G7 legs lead to the S10 loiter; the legs' mission types
+    and converged flags must be those of the JAX package's own float32 run
+    of the same mission (``tests/golden_mission_ts100.json``, written by
+    ``tests/make_mission_golden.py``: that run loses some legs at the
+    400-iteration budget too); each mission type's program is captured
+    once, on its first leg.  Returns the launches."""
+    from tol_tpu_torch.mission.autopilot import FakeAutopilot
+    from tol_tpu_torch.mission.mission import (Mission, MissionConfig,
+                                               default_leg_solver)
+
+    cfg = MissionConfig()
+    solve_leg = default_leg_solver(cfg)
+    legs = []
+
+    def leg(mission_type, goal, stitch=None, v0=None):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        doc = solve_leg(mission_type, goal, stitch=stitch, v0=v0)
+        torch.cuda.synchronize()
+        legs.append(dict(mission=mission_type, ms=1e3 * (time.time() - t0),
+                         converged=doc["converged"],
+                         iterations=doc["iterations"],
+                         used_warm=doc["used_warm"],
+                         cold_retry=doc["cold_retry"],
+                         captures_after=solve_leg.programs.captures))
+        return doc
+
+    _reset_launch_counts(ck, ch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    mission = Mission(cfg, FakeAutopilot(), leg_solver=leg)
+    traj = mission.run(MISSION_GOAL)
+    wall = time.time() - t0
+    launches = _launch_counts(ck, ch)
+    first = {}
+    for i, x in enumerate(legs):
+        first.setdefault(x["mission"], i)
+    # captures may grow only on a mission type's first leg
+    grew = [i for i in range(len(legs))
+            if legs[i]["captures_after"]
+            > (legs[i - 1]["captures_after"] if i else 0)]
+    rec = dict(
+        phase="paths_mission", config="MissionConfig() defaults",
+        aircraft=cfg.aircraft, ts=cfg.ts, chain=cfg.leg_chain,
+        ensemble=cfg.leg_ensemble, leg_max_iter=cfg.leg_max_iter,
+        goal=list(MISSION_GOAL), legs=legs, log=mission.log,
+        wall_s=wall, points=len(traj), captures=solve_leg.programs.captures,
+        capture_s=solve_leg.programs.capture_s,
+        captures_on_legs=grew, launches=launches,
+        kernels_on_path="none: chain cr is plain torch",
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    with open(os.path.join(HERE, "tests", "golden_mission_ts100.json")) as fh:
+        gold = json.load(fh)["legs"]
+    rec["golden"] = dict(legs=gold, source="tests/golden_mission_ts100.json "
+                                           "(JAX, float32, CPU)")
+    rec["converged"] = sum(x["converged"] for x in legs)
+    print(json.dumps(rec), flush=True)
+    flags = lambda xs: [(x["mission"], x["converged"]) for x in xs]
+    _require(flags(legs) == flags(gold),
+             f"mission: legs {flags(legs)}, the JAX package's {flags(gold)}")
+    _require(sum(x["mission"] == "G7" for x in legs) >= 2
+             and legs[-1]["mission"] == "S10",
+             f"mission: legs {[x['mission'] for x in legs]}, not two G7 "
+             "legs and the loiter")
+    _require(grew == sorted(first.values())
+             and rec["captures"] == len(first),
+             f"mission: captures on legs {grew}, first legs {first}")
+    _path_kernels_ok("mission", launches, ())
+    return launches
+
+
+def jacobi_profile(torch, dev) -> dict:
+    """The structured KKT's eigen-convexification alone, at a ts=100
+    step's shape (128 x 101 symmetric 11x11 blocks, float32) and captured:
+    ms a replay by the host clock over ``GRAPH_REPLAYS`` replays, then one
+    replay under torch.profiler: device busy time and kernel nodes.  Its
+    operations do not depend on the values."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tol_tpu_torch.solver.kkt_structured import convexify_blocks
+
+    gen = torch.Generator().manual_seed(0)
+    A = torch.randn(B_LANES, TS + 1, NB, NB, generator=gen).to(dev)
+    A = A + A.mT
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        convexify_blocks(A)                  # builds the index tensors
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        convexify_blocks(A)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(GRAPH_REPLAYS):
+        graph.replay()
+    torch.cuda.synchronize()
+    replay_ms = 1e3 * (time.time() - t0) / GRAPH_REPLAYS
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        graph.replay()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    rec = dict(phase="paths_jacobi", shape=list(A.shape), dtype="float32",
+               replay_ms=replay_ms,
+               device_busy_ms=busy_ms if busy_ms > 0 else None,
+               kernel_nodes=sum(e.count for e in kernels) if busy_ms > 0
+               else None)
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def run_paths(torch, ck, ch, dev) -> dict:
+    """The ``paths`` phase.  Returns the launches of its captured runs."""
+    total = {k: 0 for k in KERNELS}
+    jacobi_profile(torch, dev)
+    for part in (lambda: run_paths_compare(torch, ck, ch, dev),
+                 lambda: run_paths_solves(torch, ck, ch, dev),
+                 lambda: run_paths_trace(torch, ck, ch, dev),
+                 lambda: run_paths_mission(torch, ck, ch)):
+        t0 = time.time()
+        for k, n in part().items():
+            total[k] += n
+        print(json.dumps(dict(phase="paths_part",
+                              seconds=time.time() - t0)), flush=True)
+    return total
+
+
+# ---------------------------------------------------------------------------
 # phase 5: where a solver iteration's time goes
 # ---------------------------------------------------------------------------
 
 def profile_iterations(torch, ck, ch, can, v0s, bodies):
-    """One iteration of each body at 128 lanes (after 6 warm-up iterations
-    from the seeds): host wall, the device's busy time under torch.profiler
+    """One iteration of each body at 128 lanes (after
+    ``PROFILE_WARM_STEPS`` warm-up iterations from the seeds): host wall, the device's busy time under torch.profiler
     (sum of kernel durations on the one stream), the hand-written kernels'
     share of it, the number of kernel launches, and each hand-written
     kernel's launches in the step."""
@@ -1604,7 +2002,7 @@ def profile_iterations(torch, ck, ch, can, v0s, bodies):
         kkt = make_condensed_kkt(can, refine=refine, chain=chain)
         kern = make_kernel(can, kkt, opts, can.nlp.inst0, v0s)
         st = kern.init_state(p, p, False)
-        for _ in range(6):
+        for _ in range(PROFILE_WARM_STEPS):
             st, _ = kern.substep(st, None, p, p, None)
         torch.cuda.synchronize()
         _reset_launch_counts(ck, ch)
@@ -1640,7 +2038,7 @@ def profile_iterations(torch, ck, ch, can, v0s, bodies):
         prog.load(can.nlp.inst0, st, p, None)
         prog.run()
         prog.run()
-        out[name]["replayed"] = replay_profile(torch, prog)
+        out[name]["replayed"] = replay_profile(torch, prog, eager_steps=1)
     return out
 
 
@@ -1753,6 +2151,11 @@ def main() -> int:
         with timer("graph"):
             solve_paths["graph"], _ = run_graph(torch, ck, ch, dev)
         print(json.dumps(dict(phase="graph_total",
+                              seconds=time.time() - t0)), flush=True)
+        t0 = time.time()
+        with timer("paths"):
+            solve_paths["paths"] = run_paths(torch, ck, ch, dev)
+        print(json.dumps(dict(phase="paths_total",
                               seconds=time.time() - t0)), flush=True)
         by_path.update(solve_paths)
         # A kernel's launches: those of the solves; K5, which no solve

@@ -7,14 +7,18 @@ graph and replayed; here the same unit runs eagerly.  These tests hold:
 * the unit's step makes no host-syncing or host-data call (what a capture
   refuses), for every program the solves run: the crp dive, the endgame
   with dual CG and chord substeps, a ``Phase1`` drain step, G7 with its
-  slacks, the storm (wind model 3) and the sequential-chain dive;
+  slacks, the storm (wind model 3) and the sequential-chain dive, the
+  structured and dense KKT, the condensed KKT's plain chains (scan, cr,
+  spike), wind models 2, 4 and 5, and the storm's onehot and gather
+  lowerings;
 * the unit, looped as ``alm.solve`` loops it, gives the eager loop's bits,
-  and so does the grouped solver with its static Instance and parameter
-  buffers refilled between groups of two airframes;
+  for every program, ``opts.trace``'s records included, and so does the
+  grouped solver with its static Instance and parameter buffers refilled
+  between groups of two airframes;
 * the launch bookkeeping of a capture and its replays.
 
 The card's side (capture, replay, the same bits on the H100) is
-``chip_smoke.py``'s ``graph`` phase.
+``chip_smoke.py``'s ``graph`` and ``paths`` phases.
 """
 
 import numpy as np
@@ -33,6 +37,8 @@ from tol_tpu_torch.solver import alm
 from tol_tpu_torch.solver.batch import make_grouped_solver
 from tol_tpu_torch.solver.canonical import canonicalize
 from tol_tpu_torch.solver.kkt_condensed import make_condensed_kkt
+from tol_tpu_torch.solver.kkt_dense import make_dense_kkt
+from tol_tpu_torch.solver.kkt_structured import make_structured_kkt
 
 TS = 8
 LANES = 2
@@ -69,7 +75,9 @@ class _NoHostFunctions(TorchFunctionMode):
 
 
 _SYNCING_ATEN = {"_local_scalar_dense", "nonzero", "is_nonzero",
-                 "masked_select"}
+                 "masked_select",
+                 # linalg's error checks read the device's info on the host
+                 "_linalg_check_errors", "_linalg_eigh"}
 
 
 class _NoHostOps(TorchDispatchMode):
@@ -116,6 +124,11 @@ _PATTERNS = {
     "nonzero": lambda x: torch.nonzero(x > 0),
     "mask_index": lambda x: x[x > 0],
     "where_one_arg": lambda x: torch.where(x > 0),
+    # kkt_dense's old solve: solve_ex, then aten._linalg_check_errors
+    "linalg_solve": lambda x: torch.linalg.solve(
+        torch.eye(4, dtype=x.dtype) + torch.outer(x, x), x),
+    # kkt_structured's old convexification
+    "linalg_eigh": lambda x: torch.linalg.eigh(torch.outer(x, x)),
 }
 
 
@@ -172,15 +185,21 @@ _CANS = {}
 
 
 def _can(kind):
+    """``kind``: "s10", "g7", "storm" (wind model 3, interp "auto"),
+    "storm_onehot", "storm_gather", or "wind<k>" (S10 under model k)."""
     if kind not in _CANS:
         if kind == "g7":
             nlp = make_problem("G7", "skywalker", ts=TS, wind_model=1,
                                device="cpu")
-        elif kind == "storm":
-            wind = WindConfig(model=3, order=2, **STORM_DATUM,
+        elif kind.startswith("storm"):
+            interp = kind.partition("_")[2] or "auto"
+            wind = WindConfig(model=3, order=2, interp=interp, **STORM_DATUM,
                               grid=make_demo_storm_grid(device="cpu"))
             nlp = make_problem("S10", "tempest", ts=TS, wind_model=3,
                                wind=wind, device="cpu")
+        elif kind.startswith("wind"):
+            nlp = make_problem("S10", "tempest", ts=TS,
+                               wind_model=int(kind[4:]), device="cpu")
         else:
             nlp = make_problem("S10", "tempest", ts=TS, wind_model=1,
                                device="cpu")
@@ -199,7 +218,8 @@ def _seeds(can, n, seed=0, inst=None):
                                                 ub))
 
 
-# name: (problem, options, KKT refine, chain, endgame?, drain?)
+# name: (problem, options, KKT refine, chain, endgame?, drain?); the chain
+# "structured" or "dense" names that KKT in place of the condensed one
 PROGRAMS = {
     "dive": ("s10", DIVE, 0, "crp", False, False),
     "seqdive": ("s10", DIVE, 0, "pallas", False, False),
@@ -207,14 +227,36 @@ PROGRAMS = {
     "drain": ("s10", END, 1, "crp", False, True),
     "g7": ("g7", END, 1, "crp", True, False),
     "storm": ("storm", dict(END, max_ls=4), 1, "crp", True, False),
+    "structured": ("s10", END, 0, "structured", True, False),
+    "dense": ("s10", END, 0, "dense", True, False),
+    "scan": ("s10", END, 1, "scan", True, False),
+    "cr": ("s10", END, 1, "cr", True, False),
+    "spike": ("s10", END, 1, "spike", True, False),
+    "wind2": ("wind2", END, 1, "crp", True, False),
+    "wind4": ("wind4", END, 1, "crp", True, False),
+    "wind5": ("wind5", END, 1, "crp", True, False),
+    "storm_onehot": ("storm_onehot", dict(END, max_ls=4), 1, "crp", True,
+                     False),
+    "storm_gather": ("storm_gather", dict(END, max_ls=4), 1, "crp", True,
+                     False),
 }
+NEW_PROGRAMS = ["structured", "dense", "scan", "cr", "spike", "wind2",
+                "wind4", "wind5", "storm_onehot", "storm_gather"]
+
+
+def _kkt(can, refine, chain):
+    if chain == "structured":
+        return make_structured_kkt(can)
+    if chain == "dense":
+        return make_dense_kkt(can)
+    return make_condensed_kkt(can, refine=refine, chain=chain)
 
 
 def _program(name):
     kind, opts, refine, chain, endgame, drain = PROGRAMS[name]
     can = _can(kind)
     opts = alm.ALMOptions(**opts)
-    kkt = make_condensed_kkt(can, refine=refine, chain=chain)
+    kkt = _kkt(can, refine, chain)
     v0 = _seeds(can, LANES)
     inst = can.nlp.inst0
     p1, p2 = _dive_params(400), _end_params(400)
@@ -254,8 +296,8 @@ def test_program_step_makes_no_host_call(name):
 def _assert_same_bits(a, b, what):
     for k in type(a)._fields:
         x, y = getattr(a, k), getattr(b, k)
-        if x is None or isinstance(x, alm.ALMState):
-            continue
+        if x is None or isinstance(x, alm.ALMState) or k == "trace":
+            continue                  # the trace: compared by its caller
         assert torch.equal(x, y), (what, k)
 
 
@@ -300,16 +342,87 @@ def test_program_cache_keys_and_bound(monkeypatch):
         alm.solve(can, kkt, opts, v0=_seeds(can, 1), params=p, _loop="graph")
 
 
-def test_trace_runs_the_eager_loop():
-    """``opts.trace`` records per step on the host: it keeps the eager loop
-    whatever ``_loop`` asks for."""
+@pytest.mark.parametrize("name", NEW_PROGRAMS)
+def test_new_program_loop_matches_eager_loop(name):
+    """Each program of the paths added after the condensed crp ones,
+    looped as ``solve`` loops it (its unit run eagerly on the CPU), gives
+    the eager loop's bits in every result and state field, from a state
+    one step on with lanes at different counters."""
+    prog = _program(name)
+    prog.step()
+    st0 = alm.ALMState(*[x.clone() for x in prog.st])
+    st0 = st0._replace(it=st0.it + torch.tensor([2, 0], dtype=torch.int32))
+    kind, opts, refine, chain, _, _ = PROGRAMS[name]
+    can = _can(kind)
+    kkt = _kkt(can, refine, chain)
+    p = prog.p2._replace(max_iter=torch.tensor(6, dtype=torch.int32))
+    runs = [alm.solve(can, kkt, alm.ALMOptions(**opts), params=p, state0=st0,
+                      keep_state=True, _loop=loop) for loop in ("eager",
+                                                                "program")]
+    _assert_same_bits(runs[1], runs[0], "result")
+    _assert_same_bits(runs[1].state, runs[0].state, "state")
+    assert runs[0].state.it.tolist() == [6, 6]
+    assert torch.isfinite(runs[0].v).all()
+
+
+@pytest.mark.parametrize("trace_len", [12, 5])
+def test_trace_program_matches_eager_trace(trace_len):
+    """``opts.trace`` through the program: each step writes its six records
+    at a device index, a finished lane repeats its last record, and the
+    columns after the last step repeat the final state's.  A ``state0``
+    resume with lanes at iterations 7, 5 and 3 of a budget of 10 (so they
+    finish after 3, 5 and 7 steps of this call): the trace and every
+    result field equal the eager loop's bits, over more steps than the
+    trace holds (5) and fewer (12)."""
     can = _can("s10")
     kkt = make_condensed_kkt(can, refine=0, chain="crp")
-    opts = alm.ALMOptions(**dict(DIVE, max_iter=3, trace=True))
+    p = _dive_params(10)
+    st0 = alm.solve(can, kkt, alm.ALMOptions(**DIVE), v0=_seeds(can, 3),
+                    params=p._replace(max_iter=torch.tensor(3,
+                                                            dtype=torch.int32)),
+                    keep_state=True).state
+    st0 = st0._replace(it=st0.it + torch.tensor([4, 2, 0], dtype=torch.int32))
+    opts = alm.ALMOptions(**dict(DIVE, max_iter=trace_len, trace=True))
     cache = alm.ProgramCache()
-    out = alm.solve(can, kkt, opts, v0=_seeds(can, 2), params=_dive_params(3),
+    eager = alm.solve(can, kkt, opts, params=p, state0=st0, keep_state=True,
+                      _loop="eager")
+    for _ in range(2):                  # the second refills the program
+        prog = alm.solve(can, kkt, opts, params=p, state0=st0,
+                         keep_state=True, _loop="program", _programs=cache)
+        _assert_same_bits(prog, eager, "result")
+        _assert_same_bits(prog.state, eager.state, "state")
+        assert len(prog.trace) == 6
+        for k, (a, b) in enumerate(zip(prog.trace, eager.trace)):
+            assert a.shape == (3, trace_len)
+            assert torch.equal(a, b), k
+    assert len(cache.programs) == 1
+    steps = min(trace_len, 10)
+    assert eager.iterations.tolist() == [min(7 + steps, 10),
+                                         min(5 + steps, 10),
+                                         min(3 + steps, 10)]
+    kkt_err = eager.trace[0]
+    # lane 0 finishes after 3 steps: its later columns repeat column 2
+    assert torch.equal(kkt_err[0, 2:], kkt_err[0, 2].expand(trace_len - 2))
+    assert not torch.equal(kkt_err[2, :steps - 1], kkt_err[2, 1:steps])
+
+
+def test_verbose_keeps_the_eager_loop(capsys):
+    """``opts.verbose`` prints from every step, which a graph cannot: it
+    runs the eager loop whatever ``_loop`` asks for, and is the only
+    option that does."""
+    can = _can("s10")
+    kkt = make_condensed_kkt(can, refine=0, chain="crp")
+    cache = alm.ProgramCache()
+    out = alm.solve(can, kkt, alm.ALMOptions(**dict(DIVE, verbose=True)),
+                    v0=_seeds(can, 2), params=_dive_params(3),
                     _loop="program", _programs=cache)
-    assert out.trace[0].shape == (2, 3) and not cache.programs
+    assert not cache.programs
+    assert out.iterations.tolist() == [3, 3]
+    assert capsys.readouterr().out.count("it=") == 3
+    alm.solve(can, kkt, alm.ALMOptions(**dict(DIVE, trace=True, max_iter=3)),
+              v0=_seeds(can, 2), params=_dive_params(3), _loop="program",
+              _programs=cache)
+    assert len(cache.programs) == 1
 
 
 AIRFRAMES = ["tempest", "tempest_wences"]

@@ -63,6 +63,41 @@ def chol_unrolled(A):
     return torch.stack(cols, dim=-1)
 
 
+def chol_outer(A):
+    """Lower Cholesky factor of SPD ``A`` (..., n, n), column by column with
+    a rank-one update of the rest: n steps of a few whole-matrix operations
+    where :func:`chol_unrolled` takes O(n^2) (the same products, subtracted
+    in the same order); NaN on a non-PD pivot, which the updates spread."""
+    n = A.shape[-1]
+    cols = []
+    for j in range(n):
+        col = A[..., :, j] / torch.sqrt(A[..., j, j])[..., None]
+        cols.append(col)
+        if j + 1 < n:
+            A = A - col[..., :, None] * col[..., None, :]
+    return torch.tril(torch.stack(cols, dim=-1))
+
+
+def cho_solve_outer(L, X):
+    """``(L L^T)^-1 X`` for lower ``L`` (..., n, n), ``X`` (..., n, m): the
+    forward solve by L's columns, the back solve by its rows."""
+    n = L.shape[-1]
+    ys = []
+    for j in range(n):
+        y = X[..., j, :] / L[..., j, j, None]
+        ys.append(y)
+        if j + 1 < n:
+            X = X - L[..., :, j, None] * y[..., None, :]
+    Y = torch.stack(ys, dim=-2)
+    xs = [None] * n
+    for i in range(n - 1, -1, -1):
+        x = Y[..., i, :] / L[..., i, i, None]
+        xs[i] = x
+        if i:
+            Y = Y - L[..., i, :, None] * x[..., None, :]
+    return torch.stack(xs, dim=-2)
+
+
 def tri_solve_unrolled(L, B, lower=True, trans=False):
     """Solve ``L X = B`` (``L^T X = B`` with ``trans``) for triangular L:
     (..., n, n), (..., n, m)."""
@@ -99,3 +134,22 @@ def spd_inverse(A):
     n = A.shape[-1]
     eye = torch.eye(n, dtype=A.dtype, device=A.device).expand(A.shape)
     return spd_solve(A, eye)
+
+
+def solve_unchecked(A, B):
+    """``A X = B`` per batch entry by LU with partial pivoting and no error
+    check: a singular or non-finite ``A`` gives nan/inf in its entry, as
+    ``jnp.linalg.solve`` does, and nothing reads the device's ``info`` back.
+    On CUDA the LU runs through cuSOLVER / cuBLAS, which a CUDA graph
+    captures; PyTorch's default for a batch of matrices wider than 16 is
+    MAGMA, which a capture refuses."""
+    if A.device.type != "cuda":
+        return torch.linalg.solve_ex(A, B)[0]
+    backends = torch.backends.cuda
+    prev = backends.preferred_linalg_library()
+    backends.preferred_linalg_library("cusolver")
+    try:
+        return torch.linalg.solve_ex(A, B)[0]
+    finally:
+        backends.preferred_linalg_library(prev)
+

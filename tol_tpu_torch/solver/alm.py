@@ -25,8 +25,11 @@ structure) and replayed between the host's checks (:class:`_StepProgram`,
 :class:`ProgramCache`).  The state, the ``ALMParams``/``Phase1`` tensors
 and the Instance's tensors are the graph's inputs, refilled by ``copy_``,
 so one graph serves every group, budget and airframe of one structure.
-The eager loop runs on the CPU, for ``opts.trace`` / ``opts.verbose``, and
-when ``solve``'s private ``_loop="eager"`` asks for it.
+With ``opts.trace`` the program also writes each step's six records into
+static (B, ``max_iter``) buffers at a device step index, the counterpart of
+the JAX package's fixed-length ``lax.scan``.  The eager loop runs on the
+CPU, for ``opts.verbose`` (a graph cannot print), and when ``solve``'s
+private ``_loop="eager"`` asks for it.
 
 Every reduction is per lane (over the last axis); no value crosses lanes.
 """
@@ -654,6 +657,13 @@ def _newton_step(kern: _Kernel, opts: ALMOptions, st: ALMState,
     return st_n
 
 
+def _record(kern: _Kernel, st: ALMState) -> tuple:
+    """One step's trace record: ``(kkt_err, mu, gamma, delta_w,
+    constraint violation, f)``, each (B,)."""
+    return (st.kkt_err, st.mu, st.gamma, st.delta_w,
+            _inf_norm(kern.c_fn(st.v)), st.f_prev)
+
+
 def _steps_left(active: torch.Tensor, max_iter: torch.Tensor,
                 it: torch.Tensor) -> int:
     """Steps until the last active lane reaches its budget; 0 when no lane
@@ -748,6 +758,12 @@ class _StepProgram:
 
     A capture launches nothing, so the kernel wrappers' launch counts are
     set back after it; each replay adds the launches the capture recorded.
+
+    With ``opts.trace`` each step also writes its record (:func:`_record`)
+    into column ``k`` of six static (B, ``opts.max_iter``) buffers and
+    advances ``k``, a device index that :meth:`load` sets to 0: it counts
+    the steps of one solve, not ``it``.  The caller runs at most
+    ``opts.max_iter`` steps.
     """
 
     def __init__(self, can: CanonicalNLP, kkt_solve: Callable,
@@ -760,6 +776,13 @@ class _StepProgram:
         self.phase1 = _static_copy(phase1)
         self.p1 = self.phase1.params if phase1 is not None else self.p2
         self.kern = make_kernel(can, kkt_solve, opts, self.inst, self.st.v)
+        self.records = None
+        if opts.trace:
+            v = self.st.v
+            self.records = tuple(
+                torch.zeros(v.shape[0], opts.max_iter, dtype=v.dtype,
+                            device=v.device) for _ in range(6))
+            self.k = torch.zeros(1, dtype=torch.int64, device=v.device)
         self.graph = None
         self.warm = False
         self.launches: dict = {}     # one replay's launches per wrapper
@@ -773,6 +796,8 @@ class _StepProgram:
             for buf, x in zip(_tensors(bufs), _tensors(tree)):
                 buf.copy_(x)
         self.kern.rebind()
+        if self.records is not None:
+            self.k.zero_()
 
     def step(self) -> None:
         """One masked step with write-back, eagerly."""
@@ -782,6 +807,10 @@ class _StepProgram:
                                            self.p2, self.phase1), st)
         for buf, x in zip(st, new):
             buf.copy_(x)
+        if self.records is not None:
+            for buf, x in zip(self.records, _record(self.kern, st)):
+                buf.index_copy_(1, self.k, x[:, None])
+            self.k.add_(1)
 
     def steps_left(self) -> int:
         st = self.st
@@ -875,10 +904,10 @@ def solve(can: CanonicalNLP, kkt_solve: Callable,
 
     On a CUDA device the steps run as a captured program
     (:class:`_StepProgram`) taken from ``_programs`` (a cache of this call
-    alone when None); on the CPU, and with ``opts.trace`` or
-    ``opts.verbose``, the eager loop runs.  ``_loop`` ("eager" or
-    "program"; private) overrides the choice, for comparisons: "program"
-    on the CPU runs the program's unit eagerly.
+    alone when None), ``opts.trace`` included; on the CPU, and with
+    ``opts.verbose`` (a graph cannot print), the eager loop runs.
+    ``_loop`` ("eager" or "program"; private) overrides the choice, for
+    comparisons: "program" on the CPU runs the program's unit eagerly.
     """
     # The counterpart of jax.default_matmul_precision("highest"): every
     # float32 product of the Newton pipeline runs in full float32.
@@ -900,16 +929,14 @@ def solve(can: CanonicalNLP, kkt_solve: Callable,
           if state0 is None else state0)
 
     loop = _loop or ("program" if dev.type == "cuda" else "eager")
-    if opts.trace or opts.verbose:
+    if opts.verbose:
         loop = "eager"
     if loop not in ("eager", "program"):
         raise ValueError(f"unknown loop {loop!r}")
 
-    def record(st: ALMState):
-        return (st.kkt_err, st.mu, st.gamma, st.delta_w,
-                _inf_norm(kern.c_fn(st.v)), st.f_prev)
-
     records = [] if opts.trace else None
+    trace = None
+    steps = 0           # this call's steps: at most opts.max_iter traced
     until_check = 0
     if loop == "program":
         programs = _programs if _programs is not None else ProgramCache()
@@ -921,15 +948,20 @@ def solve(can: CanonicalNLP, kkt_solve: Callable,
         while True:
             if until_check == 0:
                 left = prog.steps_left()
+                if opts.trace:
+                    left = min(left, opts.max_iter - steps)
                 if left == 0:
                     break
                 until_check = min(_CHECK_EVERY, left)
             prog.run()
+            steps += 1
             until_check -= 1
         st = ALMState(*[x.clone() for x in prog.st])
+        if opts.trace:
+            trace = tuple(x.clone() for x in prog.records)
     while loop == "eager":
         active = (~st.converged) & (st.it < p2.max_iter)
-        if opts.trace and len(records) == opts.max_iter:
+        if opts.trace and steps == opts.max_iter:
             break
         if until_check == 0:
             # no lane can run past its budget: check again no later than
@@ -940,13 +972,18 @@ def solve(can: CanonicalNLP, kkt_solve: Callable,
             until_check = min(_CHECK_EVERY, left)
         st = _select(active, _newton_step(kern, opts, st, p1, p2, phase1), st)
         if opts.trace:
-            records.append(record(st))
+            records.append(_record(kern, st))
+        steps += 1
         until_check -= 1
 
-    trace = None
     if opts.trace:
-        records += [record(st)] * (opts.max_iter - len(records))
-        trace = tuple(torch.stack(x, dim=1) for x in zip(*records))
+        # the columns after the last step repeat the final state's record
+        if loop == "eager":
+            records += [_record(kern, st)] * (opts.max_iter - steps)
+            trace = tuple(torch.stack(x, dim=1) for x in zip(*records))
+        elif steps < opts.max_iter:
+            for buf, x in zip(trace, _record(kern, st)):
+                buf[:, steps:] = x[:, None]
 
     cv = kern.c_fn(st.v)
     y_fin = (st.y_ls if opts.dual_refine_k > 0

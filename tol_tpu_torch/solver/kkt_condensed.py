@@ -38,8 +38,9 @@ from tol_tpu_torch.ops.blocktri import cr_factor, cr_solve
 from tol_tpu_torch.ops.chainkern import (chain_back_sub, chain_eliminate,
                                          chain_rhs_forward)
 from tol_tpu_torch.ops.crkern import crp_factor_solve, crp_pad_rhs, crp_solve
-from tol_tpu_torch.ops.smallalg import (bmm, bmm_tn, bmv, bmv_t, chol_unrolled,
-                                        spd_inverse, tri_solve_unrolled)
+from tol_tpu_torch.ops.smallalg import (bmm_tn, bmv, bmv_t, cho_solve_outer,
+                                        chol_outer, chol_unrolled,
+                                        tri_solve_unrolled)
 from tol_tpu_torch.ops.spike import spike_factor, spike_solve
 from tol_tpu_torch.solver.canonical import CanonicalNLP, jacfwd_lanes
 
@@ -332,39 +333,45 @@ def make_condensed_kkt(can: CanonicalNLP, refine: int = 2, chain: str = "crp"):
                     coef), d_beta
 
         else:  # "scan": the sequential elimination, block by block
+            # Each block's inverse by the outer-product Cholesky and whole
+            # (B, 11, k) products: a few operations a block where the
+            # unrolled recurrences take hundreds (each is a graph node).
+            eye = torch.eye(NV, dtype=dtype, device=dev).expand(B, NV, NV)
             Dcorr = torch.zeros(B, NV, NV, dtype=dtype, device=dev)
             Wcorr = torch.zeros(B, NV, nB, dtype=dtype, device=dev)
-            S_acc = torch.zeros(B, nB, nB, dtype=dtype, device=dev)
-            Dinvs, t2s, tWs, Wts = [], [], [], []
+            Dinvs, Wts, tt2s = [], [], []
             for i in range(T):
-                Oi = O_chain[:, i]
                 Wt = Wc[:, i] - Wcorr
-                Dinv = spd_inverse(M_chain[:, i] - Dcorr)
-                tW = bmm(Dinv, Wt)                 # D~^-1 W~  (11, nB)
-                t2 = bmm(Dinv, Oi)                 # D~^-1 O_i (11, 11)
-                S_acc = S_acc - bmm_tn(Wt, tW)
-                Dcorr, Wcorr = bmm_tn(Oi, t2), bmm_tn(Oi, tW)
+                Dinv = cho_solve_outer(chol_outer(M_chain[:, i] - Dcorr), eye)
+                tt2 = Dinv @ torch.cat([Wt, O_chain[:, i]], dim=2)
+                corr = O_chain[:, i].mT @ tt2       # O^T D~^-1 [W~ | O]
+                Wcorr, Dcorr = corr[..., :nB], corr[..., nB:]
                 Dinvs.append(Dinv)
-                t2s.append(t2)
-                tWs.append(tW)
                 Wts.append(Wt)
-            L_border = chol_unrolled(B0 + S_acc)
+                tt2s.append(tt2)
+            Dinv_s = torch.stack(Dinvs, dim=1)      # (B, T, 11, 11)
+            Wt_s = torch.stack(Wts, dim=1)          # (B, T, 11, nB)
+            tt2_s = torch.stack(tt2s, dim=1)        # [D~^-1 W~ | D~^-1 O]
+            tW_s, t2_s = tt2_s[..., :nB], tt2_s[..., nB:]
+            L_border = chol_unrolled(B0 - (Wt_s.mT @ tW_s).sum(1))
 
             def chain_solve(r_chain, rB):
-                rcorr = torch.zeros(B, NV, dtype=dtype, device=dev)
-                rB_acc, trs = rB, []
+                rcorr = torch.zeros(B, NV, 1, dtype=dtype, device=dev)
+                trs = []
                 for i in range(T):
-                    tr = bmv(Dinvs[i], r_chain[:, i] - rcorr)   # D~^-1 r~
-                    rB_acc = rB_acc - bmv_t(Wts[i], tr)
-                    rcorr = bmv_t(O_chain[:, i], tr)
+                    tr = Dinv_s[:, i] @ (r_chain[:, i, :, None] - rcorr)
+                    rcorr = O_chain[:, i].mT @ tr
                     trs.append(tr)
+                tr_s = torch.cat(trs, dim=2).mT      # (B, T, 11): D~^-1 r~
+                rB_acc = rB - (Wt_s.mT @ tr_s[..., None]).sum(1)[..., 0]
                 d_beta = border_solve(L_border, rB_acc)
-                dv_next = torch.zeros(B, NV, dtype=dtype, device=dev)
+                base = tr_s - (tW_s @ d_beta[:, None, :, None])[..., 0]
+                dv_next = torch.zeros(B, NV, 1, dtype=dtype, device=dev)
                 dZs = [None] * T
                 for i in range(T - 1, -1, -1):
-                    dv_next = trs[i] - bmv(tWs[i], d_beta) - bmv(t2s[i], dv_next)
+                    dv_next = base[:, i, :, None] - t2_s[:, i] @ dv_next
                     dZs[i] = dv_next
-                return torch.stack(dZs, dim=1), d_beta
+                return torch.cat(dZs, dim=2).mT, d_beta
 
         def solve_once(rhs_v_, rhs_c_):
             rz, rB, rc_d, rc_b = condense_rhs(rhs_v_, rhs_c_)

@@ -6,7 +6,11 @@ Solves, per lane,
     [ H + Sigma + delta_w I    J^T          ] [dv]   [rhs_v]
     [ J                        -delta_c I   ] [dy] = [rhs_c]
 
-with exact derivatives.  O((n+m)^3): for float64 CPU checks only.
+with exact derivatives.  O((n+m)^3): for float64 CPU checks and small
+horizons.  A singular or non-finite K gives nan/inf in its lane, as
+``jnp.linalg.solve`` does, and raises nothing
+(:func:`~tol_tpu_torch.ops.smallalg.solve_unchecked`: no error check, and
+an LU a CUDA graph captures).
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ from __future__ import annotations
 import torch
 from torch.func import grad
 
+from tol_tpu_torch.ops.smallalg import solve_unchecked
 from tol_tpu_torch.solver.canonical import CanonicalNLP, jacfwd_lanes
 
 
@@ -52,7 +57,7 @@ def make_dense_kkt(can: CanonicalNLP):
         K = torch.where(fmask[:, None] | fmask[None, :], 0.0, K)
         K = K + torch.diag(fmask.to(v.dtype))
         rhs = torch.cat([torch.where(fixed, 0.0, rhs_v), rhs_c], dim=-1)
-        sol = torch.linalg.solve(K, rhs)
+        sol = solve_unchecked(K, rhs)
         return sol[:, :n], sol[:, n:]
 
     return kkt_solve

@@ -8,31 +8,115 @@ arrowhead system.  One forward sweep eliminates the chain (per step one
 11x11 Cholesky of the node block Q_i, one 8x8 Cholesky of the negated dual
 Schur block ``Y_i - (Q_i^-1)[:8, :8]``, a few small products) and
 accumulates the Schur complement on the border; a small dense solve and a
-backward sweep recover the step.  Unlike the condensed backend it takes
-``delta_c = 0``.
+backward sweep recover the step.
 
-Plain torch, no kernel of its own; the sweeps are loops over the T blocks
-on (B, ...) tensors.  Every tensor carries the lane axis B first.
+Plain torch, no kernel of its own.  The work of a block that does not
+depend on the sweep's carry (the node block's Cholesky and its solves)
+runs for all T blocks at once; the loop over the blocks keeps only the
+carried 8x8 factorization.  Every tensor carries the lane axis B first.
+Nothing in a solve reads the device from the host: a NaN or non-PD block
+gives NaN in its lane (the solver's inertia signal) and raises nothing.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 
 from tol_tpu_torch.models.dynamics import NUM_STATES, NUM_VARS
-from tol_tpu_torch.ops.smallalg import chol_unrolled, tri_solve_unrolled
+from tol_tpu_torch.ops.smallalg import (cho_solve_outer, chol_outer,
+                                        chol_unrolled, solve_unchecked,
+                                        tri_solve_unrolled)
 from tol_tpu_torch.solver.canonical import CanonicalNLP
 from tol_tpu_torch.solver.kkt_condensed import derivative_blocks
 
 NS, NV = NUM_STATES, NUM_VARS
 NBLK = NS + NV  # 19
+JACOBI_SWEEPS = {torch.float64: 10, torch.float32: 6}   # fixed: no host test
 
 
 def _cho_solve(L, X):
     """Solve A X = B given L = chol(A) (lower)."""
     return tri_solve_unrolled(L, tri_solve_unrolled(L, X, lower=True),
                               lower=True, trans=True)
+
+
+def _round_robin(n: int):
+    """The parallel (Brent-Luk) order of ``n`` (even) indices: ``n - 1``
+    rounds of ``n / 2`` disjoint pairs, every pair once."""
+    ring = list(range(n))
+    rounds = []
+    for _ in range(n - 1):
+        rounds.append([tuple(sorted((ring[k], ring[n - 1 - k])))
+                       for k in range(n // 2)])
+        ring = [ring[0], ring[-1]] + ring[1:-1]
+    return rounds
+
+
+@functools.lru_cache(maxsize=None)
+def _jacobi_indices(n: int, device: torch.device):
+    """Per round of :func:`_round_robin` over ``n`` (even): the flat (n*n)
+    positions of the pairs' (p, p), (q, q), (p, q) entries, and of the
+    rotation's (p, p), (q, q), (p, q), (q, p) entries.  Made once per
+    device: a tensor built from host data is a copy the stream waits for."""
+    out = []
+    for pairs in _round_robin(n):
+        P = [p for p, _ in pairs]
+        Q = [q for _, q in pairs]
+        read = ([p * n + p for p in P] + [q * n + q for q in Q]
+                + [p * n + q for p, q in pairs])
+        write = read + [q * n + p for p, q in pairs]
+        out.append((torch.tensor(read, device=device),
+                    torch.tensor(write, device=device)))
+    return out
+
+
+def jacobi_eigh(A: torch.Tensor, sweeps: int):
+    """Eigenvalues (..., n) and eigenvectors (..., n, n) of the symmetric
+    ``A`` (..., n, n) by cyclic Jacobi in the parallel order, a fixed number
+    of sweeps and no convergence test (nothing is read back).  An odd n is
+    padded by one decoupled zero row and column, which every rotation
+    leaves alone (its pairs have a zero off-diagonal: c = 1, s = 0
+    exactly).  The order and signs of the eigenvectors are not
+    ``eigh``'s; ``V diag(f(lam)) V^T`` is the same.  A NaN block gives NaN."""
+    n = A.shape[-1]
+    lead = A.shape[:-2]
+    N = int(np.prod(lead)) if lead else 1
+    m = n + (n % 2)
+    a = torch.nn.functional.pad(A.reshape(N, n, n), (0, m - n, 0, m - n))
+    V = torch.eye(m, dtype=A.dtype, device=A.device).expand(N, m, m)
+    rounds = _jacobi_indices(m, A.device)
+    h = m // 2
+    for _ in range(sweeps):
+        for read, write in rounds:
+            g = a.reshape(N, m * m).index_select(1, read)
+            app, aqq, apq = g[:, :h], g[:, h:2 * h], g[:, 2 * h:]
+            # the rotation that zeroes a_pq: t = tan(theta), the smaller root
+            tau = (aqq - app) / (2.0 * apq)
+            at = tau.abs()
+            t = 1.0 / (at + torch.sqrt(1.0 + at * at))
+            t = torch.where(tau < 0, -t, t)
+            t = torch.where(apq == 0, 0.0, t)
+            c = 1.0 / torch.sqrt(1.0 + t * t)
+            s = t * c
+            J = torch.zeros(N, m * m, dtype=A.dtype, device=A.device)
+            J = J.index_copy(1, write, torch.cat([c, c, s, -s], dim=1))
+            J = J.reshape(N, m, m)
+            a = J.mT @ a @ J
+            V = V @ J
+    lam = a.diagonal(dim1=-2, dim2=-1)[:, :n]
+    return lam.reshape(*lead, n), V[:, :n, :n].reshape(*lead, n, n)
+
+
+def convexify_blocks(Q: torch.Tensor) -> torch.Tensor:
+    """The reference's saddle-free flip of symmetric blocks (..., n, n):
+    ``V max(|lam|, floor) V^T`` with ``floor = 1e-8 (1 + max |lam|)``."""
+    lam, V = jacobi_eigh(Q, JACOBI_SWEEPS[Q.dtype])
+    floor = 1e-8 * (1.0 + lam.abs().amax(-1, keepdim=True))
+    lam = torch.maximum(lam.abs(), floor)
+    return torch.einsum("...ij,...j,...kj->...ik", V, lam, V)
 
 
 def make_structured_kkt(can: CanonicalNLP, convexify: bool = True):
@@ -55,6 +139,9 @@ def make_structured_kkt(can: CanonicalNLP, convexify: bool = True):
     Gs_np = np.zeros((nb, n_s))
     for j, r in enumerate(np.flatnonzero(nlp.boundary_is_ineq)):
         Gs_np[r, j] = 1.0
+    # on the device once: kkt_solve runs inside every step
+    z_lo0 = nlp.inst0.z_lo
+    Gs = torch.as_tensor(Gs_np, dtype=z_lo0.dtype, device=z_lo0.device)
 
     node_hess, border_hess, defect_jac, bnd_jac = derivative_blocks(nlp)
 
@@ -96,11 +183,7 @@ def make_structured_kkt(can: CanonicalNLP, convexify: bool = True):
                        inst).reshape(B, T + 1, NV + 1, NV + 1)
         Q = Hn[..., :NV, :NV]
         if convexify:
-            Q = 0.5 * (Q + Q.transpose(-1, -2))
-            lam, V = torch.linalg.eigh(Q)
-            floor = 1e-8 * (1.0 + lam.abs().amax(-1, keepdim=True))
-            lam = torch.maximum(lam.abs(), floor)
-            Q = torch.einsum("...ij,...j,...kj->...ik", V, lam, V)
+            Q = convexify_blocks(0.5 * (Q + Q.transpose(-1, -2)))
         Q = Q + torch.diag_embed(sig_z) + dw[:, None, None, None] * eye
         qdt = Hn[..., :NV, NV]                      # (B, T+1, 11)
         sig_nodes = Hn[..., NV, NV]                 # (B, T+1)
@@ -113,7 +196,6 @@ def make_structured_kkt(can: CanonicalNLP, convexify: bool = True):
         Hb = border_hess(torch.cat([Z[:, 0], Z[:, -1], dt[:, None]], dim=1),
                          w, inst)                   # (B, 23, 23)
         G0, GT, Gdt = bnd_jac(Z[:, 0], Z[:, -1], dt, inst)
-        Gs = tt(Gs_np)
 
         # ---- fixed-variable masking on node 0 ----
         Q0_eff = ((Q[:, 0] + Hb[:, :NV, :NV]) * torch.outer(m0, m0)
@@ -166,49 +248,55 @@ def make_structured_kkt(can: CanonicalNLP, convexify: bool = True):
         # are defect i: feed dc shifted by one (the last entry is unused).
         dc_next = torch.cat([dc_def[:, 1:], dc_def[:, -1:]], dim=1)
         # E^T = d defect / d z_{i+1}, transposed: (11, 8)
-        Et = torch.eye(NV, NS, dtype=dtype, device=dev).expand(B, NV, NS)
+        Et = torch.eye(NV, NS, dtype=dtype, device=dev).expand(B, T, NV, NS)
 
-        # ---- forward sweep ----
+        # ---- what no carry enters, all T blocks at once ----
+        # Q_i^-1 [W_i's z-rows | E^T | A_i^T]
+        L_Q = chol_unrolled(Q_chain)
+        QX = _cho_solve(L_Q, torch.cat([W[:, :, NS:], Et,
+                                        A_next.transpose(-1, -2)], dim=-1))
+        Qinv_E = QX[..., nB + 1:nB + 1 + NS]                 # (B, T, 11, 8)
+        Qinv_bA = torch.cat([QX[..., :nB + 1], QX[..., nB + 1 + NS:]], dim=-1)
+        Qinv_b8 = QX[:, :, :NS, :nB + 1]
+        nQinv_A8 = -QX[:, :, :NS, nB + 1 + NS:]
+        Y_next = -torch.diag_embed(dc_next)
+
+        # ---- forward sweep: the carried 8x8 factorization ----
         Y = -torch.diag_embed(dc_def[:, 0])
         dUy = zeros(NS, nB + 1)
-        S_acc = zeros(nB + 1, nB + 1)
-        t1s, t2s = [], []
+        Wys, dyys, dzzs = [], [], []
         for i in range(T):
-            Ai = A_next[:, i]
             # Apply the pending y-row correction of the previous elimination.
-            Wi = torch.cat([W[:, i, :NS] - dUy, W[:, i, NS:]], dim=1)
-            L_Q = chol_unrolled(Q_chain[:, i])
-            Qinv_b = _cho_solve(L_Q, Wi[:, NS:])            # (11, nB+1)
-            Qinv_E = _cho_solve(L_Q, Et)                    # (11, 8)
-            L_S = chol_unrolled(Qinv_E[:, :NS] - Y)         # -(Y - Q^-1[:8,:8])
-            # t1 = D^-1 W_i
-            dy = -_cho_solve(L_S, Wi[:, :NS] - Qinv_b[:, :NS])
-            dz = Qinv_b - Qinv_E @ dy
-            t1 = torch.cat([dy, dz], dim=1)                 # (19, nB+1)
-            # t2 = D^-1 [0; A_i^T]
-            Qinv_A = _cho_solve(L_Q, Ai.transpose(1, 2))    # (11, 8)
-            dy2 = _cho_solve(L_S, Qinv_A[:, :NS])
-            dz2 = Qinv_A - Qinv_E @ dy2
-            t2 = torch.cat([dy2, dz2], dim=1)               # (19, 8)
-            S_acc = S_acc - Wi.transpose(1, 2) @ t1
-            Y = -torch.diag_embed(dc_next[:, i]) - Ai @ dz2
-            dUy = Ai @ dz
-            t1s.append(t1)
-            t2s.append(t2)
+            Wy = W[:, i, :NS] - dUy
+            L_S = chol_outer(Qinv_E[:, i, :NS] - Y)     # -(Y - Q^-1[:8,:8])
+            # [dy | dy2] = -(L_S L_S^T)^-1 [W_y - Qinv_b | -Qinv_A]
+            dyy = -cho_solve_outer(L_S, torch.cat(
+                [Wy - Qinv_b8[:, i], nQinv_A8[:, i]], dim=-1))
+            dzz = Qinv_bA[:, i] - Qinv_E[:, i] @ dyy      # [dz | dz2]
+            AZ = A_next[:, i] @ dzz
+            dUy = AZ[..., :nB + 1]
+            Y = Y_next[:, i] - AZ[..., nB + 1:]
+            Wys.append(Wy)
+            dyys.append(dyy)
+            dzzs.append(dzz)
+        # t1 = D^-1 W_i and t2 = D^-1 [0; A_i^T], side by side
+        t12 = torch.cat([torch.stack(dyys, dim=1), torch.stack(dzzs, dim=1)],
+                        dim=2)                            # (B, T, 19, nB+9)
+        Wfull = torch.cat([torch.stack(Wys, dim=1), W[:, :, NS:]], dim=2)
+        S_acc = -(Wfull.transpose(-1, -2) @ t12[..., :nB + 1]).sum(1)
 
         S_border = Bd + S_acc[:, :nB, :nB]
         rhs_border = rB + S_acc[:, :nB, nB]
         # no singularity check: a NaN lane stays NaN and raises nothing
-        d_beta = torch.linalg.solve_ex(S_border, rhs_border)[0]
+        d_beta = solve_unchecked(S_border, rhs_border)
 
         # ---- backward sweep ----
+        t1b = t12[..., nB] - (t12[..., :nB] @ d_beta[:, None, :, None])[..., 0]
+        t2s = t12[..., nB + 1:]
         dy_next = zeros(NS)
         dvs = [None] * T
         for i in range(T - 1, -1, -1):
-            t1, t2 = t1s[i], t2s[i]
-            dvs[i] = (t1[:, :, nB]
-                      - (t1[:, :, :nB] @ d_beta[..., None])[..., 0]
-                      - (t2 @ dy_next[..., None])[..., 0])
+            dvs[i] = t1b[:, i] - (t2s[:, i] @ dy_next[..., None])[..., 0]
             dy_next = dvs[i][:, :NS]
         dvs = torch.stack(dvs, dim=1)                        # (B, T, 19)
 

@@ -1,0 +1,79 @@
+"""How many tensor operations one KKT solve runs, per backend and chain.
+
+    python3 -m tol_tpu_torch.tools.kkt_ops [--ts 100] [--lanes 2]
+
+On the card each operation of a step is a node of its captured graph, so
+the count foretells a replay's kernel nodes and, at about a microsecond
+or two a node, its time.  Counts the aten operations (views and other
+metadata operations excepted) of one ``kkt_solve`` of S10 / tempest in
+float32 from the initial point, on the CPU: the structured KKT, and the
+condensed KKT with refine=1 on every chain.  The crp and pallas chains
+run their CPU twins here, which the card replaces by three launches, so
+only the other counts carry over.  Prints one JSON line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+# operations that only make another view of a tensor: no kernel
+_METADATA = {"view", "_unsafe_view", "t", "transpose", "expand", "slice",
+             "select", "unsqueeze", "squeeze", "as_strided", "alias",
+             "diagonal", "permute", "detach", "_reshape_alias", "reshape",
+             "lift_fresh"}
+
+
+class _Count(TorchDispatchMode):
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.overloadpacket.__name__ not in _METADATA:
+            self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+def count(ts: int = 100, lanes: int = 2) -> dict:
+    from tol_tpu_torch.api import make_problem
+    from tol_tpu_torch.solver.canonical import canonicalize
+    from tol_tpu_torch.solver.kkt_condensed import CHAINS, make_condensed_kkt
+    from tol_tpu_torch.solver.kkt_structured import make_structured_kkt
+
+    dt = torch.float32
+    can = canonicalize(make_problem("S10", "tempest", ts=ts, wind_model=1,
+                                    dtype=dt, device="cpu"))
+    gen = torch.Generator().manual_seed(0)
+    v = can.initial_point()[None].repeat(lanes, 1)
+    args = (v, torch.zeros(lanes, can.m, dtype=dt),
+            torch.ones(lanes, can.n, dtype=dt), torch.ones(lanes, dtype=dt),
+            torch.full((lanes,), 0.01, dtype=dt),
+            torch.randn(lanes, can.n, generator=gen, dtype=dt),
+            torch.zeros(lanes, can.m, dtype=dt))
+    kkts = {"structured": make_structured_kkt(can)}
+    kkts.update({f"condensed_{c}": make_condensed_kkt(can, refine=1, chain=c)
+                 for c in CHAINS})
+    out = {}
+    for name, kkt in kkts.items():
+        mode = _Count()
+        with mode:
+            kkt(*args)
+        out[name] = mode.n
+    return out
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--ts", type=int, default=100)
+    ap.add_argument("--lanes", type=int, default=2)
+    a = ap.parse_args()
+    print(json.dumps(dict(ts=a.ts, lanes=a.lanes, dtype="float32",
+                          aten_ops=count(a.ts, a.lanes))))
+
+
+if __name__ == "__main__":
+    main()
