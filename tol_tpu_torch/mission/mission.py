@@ -28,6 +28,7 @@ import torch
 
 from tol_tpu_torch.mission.autopilot import Autopilot, FakeAutopilot, haversine_enu
 from tol_tpu_torch.mission.trajectory import Trajectory
+from tol_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -82,6 +83,12 @@ def build_seeds(can, inst, base_v, base_y, n_warm: int, E: int,
     return v0s, y0s
 
 
+def any_converged(out) -> bool:
+    """Whether a slice ended with a converged lane (a host sync)."""
+    with span("mission.slice_check"):
+        return bool(out.converged.any())
+
+
 def pick_winner(out) -> int:
     """The lane with the least f among the converged ones, else the lane
     with the least constraint violation."""
@@ -116,7 +123,8 @@ def default_leg_solver(cfg: MissionConfig) -> Callable:
     programs = ProgramCache()
 
     def solve(*args, **kw):
-        return alm_solve(*args, _programs=programs, **kw)
+        with span("mission.slice"):
+            return alm_solve(*args, _programs=programs, **kw)
 
     def _wind_config() -> WindConfig:
         """This leg's wind; with wind_refresh the TOLWGRID file is re-read."""
@@ -130,89 +138,92 @@ def default_leg_solver(cfg: MissionConfig) -> Callable:
         return WindConfig(model=cfg.wind_model)
 
     def solve_leg(mission_type: str, goal_ned, stitch=None, v0=None):
-        wind_cfg = _wind_config()
-        if mission_type not in cache:
-            nlp = make_problem(mission_type, aircraft=cfg.aircraft,
-                               ts=cfg.ts, wind_model=cfg.wind_model,
-                               wind=wind_cfg, dtype=dtype, device=device)
-            can = canonicalize(nlp, scaling="auto")
-            kkt = make_condensed_kkt(can, refine=1, chain=cfg.leg_chain)
-            pcfg = make_config(mission_type, cfg.aircraft, ts=cfg.ts,
-                               wind_model=cfg.wind_model)
-            opts = ALMOptions(tol=cfg.leg_tol, feas_tol=cfg.leg_feas_tol,
-                              max_iter=cfg.leg_max_iter, gamma_init=0.01,
-                              gamma_min=5e-6, gamma_shrink=0.2,
-                              gamma_eager=True, mu_init=6e-5, mu_shrink=0.1,
-                              kappa_inner=2.0, prox=2.5e-3, dual_refine_k=4)
-            pbase = ALMParams.from_options(opts, dtype, device)
-            cache[mission_type] = (can, kkt, opts, pbase, pcfg)
-        can, kkt, opts, pbase, pcfg = cache[mission_type]
-        inst = make_instance(pcfg, goal_ned, wind_cfg, dtype=dtype,
-                             stitch=stitch, device=device)
-        y0 = torch.zeros(can.m, dtype=dtype, device=device)
-        used_warm = False
-        if v0 is None:
-            # Warm-start only a replan: a leg within 30 degrees of the
-            # course of the leg that left the warm state.
-            if cfg.warm_start and mission_type in warm:
-                v_w, y_w, goal_w = warm[mission_type]
-                d_chi = abs(math.atan2(float(goal_ned.yg), float(goal_ned.xg))
-                            - math.atan2(float(goal_w.yg), float(goal_w.xg)))
-                d_chi = min(d_chi, 2.0 * math.pi - d_chi)
-                if d_chi < math.pi / 6.0:
-                    v0, y0 = v_w, y_w
-                    used_warm = True
-            if v0 is None and cfg.leg_ensemble <= 0:
-                v0 = can.initial_point(inst)
-        budget = lambda it: pbase._replace(
-            max_iter=torch.tensor(it, dtype=torch.int32, device=device))
-        cold_retry = False
-        winner = None
-        t0 = time.time()
-        if cfg.leg_ensemble > 0:
-            E = cfg.leg_ensemble
-            n_warm = E // 2 if used_warm else 1
-            base = (torch.as_tensor(v0, dtype=dtype, device=device)
-                    if v0 is not None
-                    else torch.zeros(can.n, dtype=dtype, device=device))
-            leg_counter[0] += 1
-            gen = torch.Generator().manual_seed(leg_counter[0] * 7919 + E)
-            v0s, y0s = build_seeds(can, inst, base, y0, n_warm, E, gen)
-            it = min(cfg.leg_chunk, cfg.leg_max_iter)
-            out = solve(can, kkt, opts, inst=inst, v0=v0s, y0=y0s,
-                        params=budget(it), keep_state=True)
-            while not bool(out.converged.any()) and it < cfg.leg_max_iter:
-                it = min(it + cfg.leg_chunk, cfg.leg_max_iter)
-                out = solve(can, kkt, opts, inst=inst, params=budget(it),
-                            state0=out.state, keep_state=True)
-            winner = pick_winner(out)
-        else:
-            out = solve(can, kkt, opts, inst=inst, v0=v0[None], y0=y0[None])
-            if used_warm and not bool(out.converged[0]):
-                # Cold retry: a stale warm start must never lose a leg.
-                cold_retry = True
-                out = solve(can, kkt, opts, inst=inst,
-                            v0=can.initial_point(inst)[None])
-        lane = winner if winner is not None else 0
-        v, y = out.v[lane], out.y[lane]
-        converged = bool(out.converged[lane])
-        solve_s = time.time() - t0
-        Z, dt, _ = can.split(can.to_physical(v))
-        f_phys = float(out.f[lane]) / float(can.scaling.s_f)
-        doc = results_document(pcfg, goal_ned, Z, dt, f_phys,
-                               aircraft_name=cfg.aircraft)
-        doc["converged"] = converged
-        doc["kkt_err"] = float(out.kkt_err[lane])
-        doc["iterations"] = int(out.iterations[lane])
-        doc["solve_s"] = solve_s
-        doc["used_warm"] = used_warm
-        doc["cold_retry"] = cold_retry
-        if winner is not None:
-            doc["ensemble"] = cfg.leg_ensemble
-            doc["winner_lane"] = winner
-        if converged:
-            warm[mission_type] = (v, y, goal_ned)
-        return doc
+        with span("mission.leg"):
+            wind_cfg = _wind_config()
+            if mission_type not in cache:
+                nlp = make_problem(mission_type, aircraft=cfg.aircraft,
+                                   ts=cfg.ts, wind_model=cfg.wind_model,
+                                   wind=wind_cfg, dtype=dtype, device=device)
+                can = canonicalize(nlp, scaling="auto")
+                kkt = make_condensed_kkt(can, refine=1, chain=cfg.leg_chain)
+                pcfg = make_config(mission_type, cfg.aircraft, ts=cfg.ts,
+                                   wind_model=cfg.wind_model)
+                opts = ALMOptions(tol=cfg.leg_tol, feas_tol=cfg.leg_feas_tol,
+                                  max_iter=cfg.leg_max_iter, gamma_init=0.01,
+                                  gamma_min=5e-6, gamma_shrink=0.2,
+                                  gamma_eager=True, mu_init=6e-5, mu_shrink=0.1,
+                                  kappa_inner=2.0, prox=2.5e-3, dual_refine_k=4)
+                pbase = ALMParams.from_options(opts, dtype, device)
+                cache[mission_type] = (can, kkt, opts, pbase, pcfg)
+            can, kkt, opts, pbase, pcfg = cache[mission_type]
+            inst = make_instance(pcfg, goal_ned, wind_cfg, dtype=dtype,
+                                 stitch=stitch, device=device)
+            y0 = torch.zeros(can.m, dtype=dtype, device=device)
+            used_warm = False
+            if v0 is None:
+                # Warm-start only a replan: a leg within 30 degrees of the
+                # course of the leg that left the warm state.
+                if cfg.warm_start and mission_type in warm:
+                    v_w, y_w, goal_w = warm[mission_type]
+                    d_chi = abs(math.atan2(float(goal_ned.yg), float(goal_ned.xg))
+                                - math.atan2(float(goal_w.yg), float(goal_w.xg)))
+                    d_chi = min(d_chi, 2.0 * math.pi - d_chi)
+                    if d_chi < math.pi / 6.0:
+                        v0, y0 = v_w, y_w
+                        used_warm = True
+                if v0 is None and cfg.leg_ensemble <= 0:
+                    v0 = can.initial_point(inst)
+            budget = lambda it: pbase._replace(
+                max_iter=torch.tensor(it, dtype=torch.int32, device=device))
+            cold_retry = False
+            winner = None
+            t0 = time.time()
+            if cfg.leg_ensemble > 0:
+                E = cfg.leg_ensemble
+                n_warm = E // 2 if used_warm else 1
+                base = (torch.as_tensor(v0, dtype=dtype, device=device)
+                        if v0 is not None
+                        else torch.zeros(can.n, dtype=dtype, device=device))
+                leg_counter[0] += 1
+                gen = torch.Generator().manual_seed(leg_counter[0] * 7919 + E)
+                with span("mission.seeds"):
+                    v0s, y0s = build_seeds(can, inst, base, y0, n_warm, E, gen)
+                it = min(cfg.leg_chunk, cfg.leg_max_iter)
+                out = solve(can, kkt, opts, inst=inst, v0=v0s, y0=y0s,
+                            params=budget(it), keep_state=True)
+                while not any_converged(out) and it < cfg.leg_max_iter:
+                    it = min(it + cfg.leg_chunk, cfg.leg_max_iter)
+                    out = solve(can, kkt, opts, inst=inst, params=budget(it),
+                                state0=out.state, keep_state=True)
+                winner = pick_winner(out)
+            else:
+                out = solve(can, kkt, opts, inst=inst, v0=v0[None], y0=y0[None])
+                if used_warm and not bool(out.converged[0]):
+                    # Cold retry: a stale warm start must never lose a leg.
+                    cold_retry = True
+                    out = solve(can, kkt, opts, inst=inst,
+                                v0=can.initial_point(inst)[None])
+            lane = winner if winner is not None else 0
+            with span("mission.document"):
+                v, y = out.v[lane], out.y[lane]
+                converged = bool(out.converged[lane])
+                solve_s = time.time() - t0
+                Z, dt, _ = can.split(can.to_physical(v))
+                f_phys = float(out.f[lane]) / float(can.scaling.s_f)
+                doc = results_document(pcfg, goal_ned, Z, dt, f_phys,
+                                       aircraft_name=cfg.aircraft)
+                doc["converged"] = converged
+                doc["kkt_err"] = float(out.kkt_err[lane])
+                doc["iterations"] = int(out.iterations[lane])
+            doc["solve_s"] = solve_s
+            doc["used_warm"] = used_warm
+            doc["cold_retry"] = cold_retry
+            if winner is not None:
+                doc["ensemble"] = cfg.leg_ensemble
+                doc["winner_lane"] = winner
+            if converged:
+                warm[mission_type] = (v, y, goal_ned)
+            return doc
 
     solve_leg.programs = programs
     return solve_leg

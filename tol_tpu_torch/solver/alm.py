@@ -47,6 +47,8 @@ from torch.func import grad, jvp, vjp
 
 from tol_tpu_torch.ops import chainkern, crkern
 from tol_tpu_torch.solver.canonical import CanonicalNLP
+from tol_tpu_torch.utils import profiling
+from tol_tpu_torch.utils.profiling import span
 
 _BIG = 1e19
 _CHECK_EVERY = 8    # solver steps between the host's "all lanes done" tests
@@ -414,33 +416,34 @@ def make_kernel(can: CanonicalNLP, kkt_solve: Callable, opts: ALMOptions,
         """One damped-Newton step of every lane.  ``ap_stale``: a KKT apply
         closure from an earlier factorization (chord step) or None.
         Returns (new_state, apply_closure)."""
-        B = st.v.shape[0]
-        if phase1 is not None:
-            ph0 = st.phase == 0
-            eff = ALMParams(*[torch.where(ph0, a, b) for a, b in zip(p1, p2)])
-        else:
-            eff = ALMParams(*[x.expand(B) for x in p2])
-        eff = eff._replace(**{k: getattr(eff, k).to(dtype)
-                              for k in ALMParams._fields if k != "max_iter"})
-        rho = eff.prox
+        with span("step.residuals"):
+            B = st.v.shape[0]
+            if phase1 is not None:
+                ph0 = st.phase == 0
+                eff = ALMParams(*[torch.where(ph0, a, b) for a, b in zip(p1, p2)])
+            else:
+                eff = ALMParams(*[x.expand(B) for x in p2])
+            eff = eff._replace(**{k: getattr(eff, k).to(dtype)
+                                  for k in ALMParams._fields if k != "max_iter"})
+            rho = eff.prox
 
-        v, yhat, zl, zu = st.v, st.yhat, st.zl, st.zu
-        mu, gamma = st.mu, st.gamma
-        dl = torch.where(has_lb, v - lb, 1.0)
-        du = torch.where(has_ub, ub - v, 1.0)
-        sigma = (torch.where(has_lb, zl / dl, 0.0)
-                 + torch.where(has_ub, zu / du, 0.0))
+            v, yhat, zl, zu = st.v, st.yhat, st.zl, st.zu
+            mu, gamma = st.mu, st.gamma
+            dl = torch.where(has_lb, v - lb, 1.0)
+            du = torch.where(has_ub, ub - v, 1.0)
+            sigma = (torch.where(has_lb, zl / dl, 0.0)
+                     + torch.where(has_ub, zu / du, 0.0))
 
-        f_v = f_fn(v)
-        cv = c_fn(v)
-        y_al = yhat + cv / _col(gamma)
+            f_v = f_fn(v)
+            cv = c_fn(v)
+            y_al = yhat + cv / _col(gamma)
 
-        g_al = (grad_lag(v, y_al)
-                + _col(rho) * (v - st.v_ref)
-                - torch.where(has_lb, _col(mu) / dl, 0.0)
-                + torch.where(has_ub, _col(mu) / du, 0.0))
-        rhs_v = torch.where(fixed, 0.0, -g_al)
-        rhs_c = torch.zeros(B, can.m, dtype=dtype, device=dev)
+            g_al = (grad_lag(v, y_al)
+                    + _col(rho) * (v - st.v_ref)
+                    - torch.where(has_lb, _col(mu) / dl, 0.0)
+                    + torch.where(has_ub, _col(mu) / du, 0.0))
+            rhs_v = torch.where(fixed, 0.0, -g_al)
+            rhs_c = torch.zeros(B, can.m, dtype=dtype, device=dev)
 
         delta_w = st.delta_w
         gamma_rows = _col(gamma).expand(B, can.m)
@@ -455,192 +458,198 @@ def make_kernel(can: CanonicalNLP, kkt_solve: Callable, opts: ALMOptions,
             ap = None
             dv, dw = kkt_solve(v, y_al, sigma, delta_w + rho, gamma_rows,
                                rhs_v, rhs_c, inst)
-        # NaN from a non-SPD pivot is decided per lane.
-        bad = ~(torch.isfinite(dv).all(-1) & torch.isfinite(dw).all(-1))
-        dv = torch.where(_col(bad), 0.0, dv)
-        dw = torch.where(_col(bad), 0.0, dw)
 
-        d_al = (g_al * dv).sum(-1)
-        curv_ok = d_al < 0.0
+        with span("step.armijo"):
+            # NaN from a non-SPD pivot is decided per lane.
+            bad = ~(torch.isfinite(dv).all(-1) & torch.isfinite(dw).all(-1))
+            dv = torch.where(_col(bad), 0.0, dv)
+            dw = torch.where(_col(bad), 0.0, dw)
 
-        tau = torch.maximum(eff.tau_min, 1.0 - mu)
+            d_al = (g_al * dv).sum(-1)
+            curv_ok = d_al < 0.0
 
-        def ftb(slack, dslack):
-            neg = dslack < 0
-            ratio = torch.where(neg, -_col(tau) * slack
-                                / torch.where(neg, dslack, -1.0), 1.0)
-            r = torch.where(torch.isfinite(ratio), ratio, 1.0).amin(-1)
-            return torch.clamp(r, max=1.0)
+            tau = torch.maximum(eff.tau_min, 1.0 - mu)
 
-        a_max = torch.minimum(
-            ftb(torch.where(has_lb, dl, 1.0), torch.where(has_lb, dv, 0.0)),
-            ftb(torch.where(has_ub, du, 1.0), torch.where(has_ub, -dv, 0.0)))
+            def ftb(slack, dslack):
+                neg = dslack < 0
+                ratio = torch.where(neg, -_col(tau) * slack
+                                    / torch.where(neg, dslack, -1.0), 1.0)
+                r = torch.where(torch.isfinite(ratio), ratio, 1.0).amin(-1)
+                return torch.clamp(r, max=1.0)
 
-        # Plain Armijo on the AL merit, max_ls trials per lane in parallel
-        # on a second batch axis; each trial keeps its (f, c).
-        al0 = al_of(f_v, cv, v, st.v_ref, rho, yhat, gamma, mu)
-        halves = 0.5 ** torch.arange(opts.max_ls, dtype=dtype, device=dev)
-        alphas = _col(a_max) * halves                         # (B, max_ls)
-        vt = v[:, None, :] + alphas[..., None] * dv[:, None, :]
-        f_tr = f_fn(vt)
-        c_tr = c_fn(vt)
-        al_vals = al_of(f_tr, c_tr, vt, st.v_ref[:, None], _col(rho),
-                        yhat[:, None], _col(gamma), _col(mu))
-        ok = al_vals <= _col(al0) + _col(eff.eta) * alphas * _col(d_al)
-        any_ok = ok.any(-1)
-        first = ok.to(torch.int8).argmax(-1)                  # first accepted
-        alpha = torch.where(any_ok, alphas.gather(1, first[:, None])[:, 0], 0.0)
-        # Sub-noise regime: take the full step unconditionally.
-        eps_m = torch.finfo(dtype).eps
-        noise = 30.0 * eps_m * (1.0 + al0.abs())
-        sub_noise = d_al.abs() * a_max <= noise
-        alpha = torch.where(sub_noise, a_max, alpha)
-        any_ok = any_ok | sub_noise
-        alpha = torch.where(bad | (~curv_ok & ~sub_noise), 0.0, alpha)
+            a_max = torch.minimum(
+                ftb(torch.where(has_lb, dl, 1.0), torch.where(has_lb, dv, 0.0)),
+                ftb(torch.where(has_ub, du, 1.0), torch.where(has_ub, -dv, 0.0)))
 
-        reject = bad | (~curv_ok & ~sub_noise) | ~any_ok
-        delta_grown = torch.where(
-            bad, _fmax(delta_w * 30.0, 1e-2),
-            torch.where(delta_w == 0.0, 1e-6, delta_w * 10.0))
-        decayed = delta_w * eff.delta_decay
-        delta_next = torch.where(
-            reject, torch.clamp(delta_grown, max=opts.delta_w_max),
-            torch.where(decayed < opts.delta_w_min, 0.0, decayed))
+            # Plain Armijo on the AL merit, max_ls trials per lane in parallel
+            # on a second batch axis; each trial keeps its (f, c).
+            al0 = al_of(f_v, cv, v, st.v_ref, rho, yhat, gamma, mu)
+            halves = 0.5 ** torch.arange(opts.max_ls, dtype=dtype, device=dev)
+            alphas = _col(a_max) * halves                         # (B, max_ls)
+            vt = v[:, None, :] + alphas[..., None] * dv[:, None, :]
+            f_tr = f_fn(vt)
+            c_tr = c_fn(vt)
+            al_vals = al_of(f_tr, c_tr, vt, st.v_ref[:, None], _col(rho),
+                            yhat[:, None], _col(gamma), _col(mu))
+            ok = al_vals <= _col(al0) + _col(eff.eta) * alphas * _col(d_al)
+            any_ok = ok.any(-1)
+            first = ok.to(torch.int8).argmax(-1)                  # first accepted
+            alpha = torch.where(any_ok, alphas.gather(1, first[:, None])[:, 0], 0.0)
+            # Sub-noise regime: take the full step unconditionally.
+            eps_m = torch.finfo(dtype).eps
+            noise = 30.0 * eps_m * (1.0 + al0.abs())
+            sub_noise = d_al.abs() * a_max <= noise
+            alpha = torch.where(sub_noise, a_max, alpha)
+            any_ok = any_ok | sub_noise
+            alpha = torch.where(bad | (~curv_ok & ~sub_noise), 0.0, alpha)
 
-        v_n = v + _col(alpha) * dv
+            reject = bad | (~curv_ok & ~sub_noise) | ~any_ok
+            delta_grown = torch.where(
+                bad, _fmax(delta_w * 30.0, 1e-2),
+                torch.where(delta_w == 0.0, 1e-6, delta_w * 10.0))
+            decayed = delta_w * eff.delta_decay
+            delta_next = torch.where(
+                reject, torch.clamp(delta_grown, max=opts.delta_w_max),
+                torch.where(decayed < opts.delta_w_min, 0.0, decayed))
 
-        # Bound-dual updates along the realized move.
-        muc = _col(mu)
-        dzl = torch.where(has_lb, (muc - zl * dl) / dl - zl / dl * (v_n - v), 0.0)
-        dzu = torch.where(has_ub, (muc - zu * du) / du + zu / du * (v_n - v), 0.0)
-        a_dual = torch.minimum(
-            ftb(torch.where(has_lb, zl, 1.0), torch.where(has_lb, dzl, 0.0)),
-            ftb(torch.where(has_ub, zu, 1.0), torch.where(has_ub, dzu, 0.0)))
-        zl_n = zl + _col(a_dual) * dzl
-        zu_n = zu + _col(a_dual) * dzu
-        dl_n = torch.where(has_lb, v_n - lb, 1.0)
-        du_n = torch.where(has_ub, ub - v_n, 1.0)
-        ks = opts.kappa_sigma
-        zl_n = torch.where(has_lb, torch.minimum(
-            torch.maximum(zl_n, muc / (ks * dl_n)), ks * muc / dl_n), 0.0)
-        zu_n = torch.where(has_ub, torch.minimum(
-            torch.maximum(zu_n, muc / (ks * du_n)), ks * muc / du_n), 0.0)
+        with span("step.update"):
+            v_n = v + _col(alpha) * dv
 
-        # (f, c) at v_n come from the accepted trial (alpha is alphas[sel]
-        # or 0 for a rejection).
-        sel = torch.where(sub_noise, 0, first)
-        took = alpha > 0.0
-        f_n = torch.where(took, f_tr.gather(1, sel[:, None])[:, 0], f_v)
-        c_sel = c_tr.gather(1, sel[:, None, None].expand(B, 1, can.m))[:, 0]
-        c_n = torch.where(_col(took), c_sel, cv)
-        y_n = yhat + c_n / _col(gamma)
-        parts_n = _kkt_parts(v_n, y_n, zl_n, zu_n)
-        err_in, th_in, e_d_in, e_c_in = _errors_at(parts_n, mu)
+            # Bound-dual updates along the realized move.
+            muc = _col(mu)
+            dzl = torch.where(has_lb,
+                              (muc - zl * dl) / dl - zl / dl * (v_n - v), 0.0)
+            dzu = torch.where(has_ub,
+                              (muc - zu * du) / du + zu / du * (v_n - v), 0.0)
+            a_dual = torch.minimum(
+                ftb(torch.where(has_lb, zl, 1.0), torch.where(has_lb, dzl, 0.0)),
+                ftb(torch.where(has_ub, zu, 1.0), torch.where(has_ub, dzu, 0.0)))
+            zl_n = zl + _col(a_dual) * dzl
+            zu_n = zu + _col(a_dual) * dzu
+            dl_n = torch.where(has_lb, v_n - lb, 1.0)
+            du_n = torch.where(has_ub, ub - v_n, 1.0)
+            ks = opts.kappa_sigma
+            zl_n = torch.where(has_lb, torch.minimum(
+                torch.maximum(zl_n, muc / (ks * dl_n)), ks * muc / dl_n), 0.0)
+            zu_n = torch.where(has_ub, torch.minimum(
+                torch.maximum(zu_n, muc / (ks * du_n)), ks * muc / du_n), 0.0)
 
-        # ---- least-squares dual refinement (see ALMOptions) ----
-        if opts.dual_refine_k > 0:
-            jvp_c = lambda t: jvp(c_fn, (v_n,), (t,))[1]
-            _, vjp_fn = vjp(c_fn, v_n)
-            vjp_c = lambda yy: vjp_fn(yy)[0]
-            g0 = (grad_f(v_n) - torch.where(has_lb, zl_n, 0.0)
-                  + torch.where(has_ub, zu_n, 0.0))
-            sig_n = (torch.where(has_lb, zl_n / dl_n, 0.0)
-                     + torch.where(has_ub, zu_n / du_n, 0.0))
-            w2 = torch.where(fixed, 0.0, 1.0 / (1.0 + sig_n))
-            Nop = lambda yy: jvp_c(w2 * vjp_c(yy))
-            y_ls = _cg(Nop, -jvp_c(w2 * g0), y_n, opts.dual_refine_k)
-            r_ls = torch.where(fixed, 0.0, g0 + vjp_c(y_ls))
-            cap = _col(0.5 * eff.tol)
-            d_l = torch.where(has_lb, torch.minimum(
-                torch.maximum(r_ls, -zl_n),
-                torch.clamp(cap / dl_n - zl_n, min=0.0)), 0.0)
-            left = r_ls - d_l
-            d_u = torch.where(has_ub, torch.minimum(
-                torch.maximum(-left, -zu_n),
-                torch.clamp(cap / du_n - zu_n, min=0.0)), 0.0)
-            r_ls = r_ls - d_l + d_u
-            zl_ls = zl_n + d_l
-            zu_ls = zu_n + d_u
-            comp_l_ls = torch.where(has_lb, zl_ls * dl_n, 0.0)
-            comp_u_ls = torch.where(has_ub, zu_ls * du_n, 0.0)
-            s_d_ls = _fmax(_div(y_ls.abs().sum(-1) + zl_ls.abs().sum(-1)
-                                + zu_ls.abs().sum(-1), n_md),
-                           opts.s_max) / opts.s_max
-            s_c_ls = _fmax(_div(zl_ls.abs().sum(-1) + zu_ls.abs().sum(-1),
-                                n_z), opts.s_max) / opts.s_max
-            parts_ls = (r_ls, parts_n[1], comp_l_ls, comp_u_ls, s_d_ls, s_c_ls)
-        else:
-            y_ls = st.y_ls
-            parts_ls = None
-        inner_err = torch.maximum(e_d_in, e_c_in)
-        inner_done = inner_err <= eff.kappa_inner * mu
-        if opts.stagnation_outer:
-            stagnated = (~bad) & (_inf_norm(dv) <= 1e-5 * (1.0 + _inf_norm(v)))
-            inner_done = inner_done | stagnated
+            # (f, c) at v_n come from the accepted trial (alpha is alphas[sel]
+            # or 0 for a rejection).
+            sel = torch.where(sub_noise, 0, first)
+            took = alpha > 0.0
+            f_n = torch.where(took, f_tr.gather(1, sel[:, None])[:, 0], f_v)
+            c_sel = c_tr.gather(1, sel[:, None, None].expand(B, 1, can.m))[:, 0]
+            c_n = torch.where(_col(took), c_sel, cv)
+            y_n = yhat + c_n / _col(gamma)
+            parts_n = _kkt_parts(v_n, y_n, zl_n, zu_n)
+            err_in, th_in, e_d_in, e_c_in = _errors_at(parts_n, mu)
 
-        # ---- outer updates, applied only when the inner problem is done ----
-        theta_now = th_in
-        feas_target = eff.feas_tol
-        stalled = (theta_now > 0.9 * st.theta_ref) | (eff.gamma_eager > 0)
-        need_feas = theta_now > feas_target
-        need_more = need_feas | (st.kkt_err > eff.tol)
-        gamma_n = torch.where(
-            inner_done & stalled & need_more,
-            torch.maximum(eff.gamma_min, gamma * eff.gamma_shrink), gamma)
-        gamma_n = torch.where(
-            inner_done & (theta_now <= 0.02 * feas_target) & ~need_more,
-            torch.minimum(gamma_n * 2.0, eff.gamma_init), gamma_n)
-        mu_n = torch.where(
-            inner_done,
-            torch.maximum(eff.mu_min, torch.minimum(eff.mu_shrink * mu,
-                                                    mu ** eff.theta_mu)),
-            mu)
-        yhat_n = torch.where(_col(inner_done), y_n, yhat)
-        theta_ref_n = torch.where(inner_done, theta_now, st.theta_ref)
-        v_ref_n = torch.where(_col(inner_done), v_n, st.v_ref)
+            # ---- least-squares dual refinement (see ALMOptions) ----
+            if opts.dual_refine_k > 0:
+                jvp_c = lambda t: jvp(c_fn, (v_n,), (t,))[1]
+                _, vjp_fn = vjp(c_fn, v_n)
+                vjp_c = lambda yy: vjp_fn(yy)[0]
+                g0 = (grad_f(v_n) - torch.where(has_lb, zl_n, 0.0)
+                      + torch.where(has_ub, zu_n, 0.0))
+                sig_n = (torch.where(has_lb, zl_n / dl_n, 0.0)
+                         + torch.where(has_ub, zu_n / du_n, 0.0))
+                w2 = torch.where(fixed, 0.0, 1.0 / (1.0 + sig_n))
+                Nop = lambda yy: jvp_c(w2 * vjp_c(yy))
+                y_ls = _cg(Nop, -jvp_c(w2 * g0), y_n, opts.dual_refine_k)
+                r_ls = torch.where(fixed, 0.0, g0 + vjp_c(y_ls))
+                cap = _col(0.5 * eff.tol)
+                d_l = torch.where(has_lb, torch.minimum(
+                    torch.maximum(r_ls, -zl_n),
+                    torch.clamp(cap / dl_n - zl_n, min=0.0)), 0.0)
+                left = r_ls - d_l
+                d_u = torch.where(has_ub, torch.minimum(
+                    torch.maximum(-left, -zu_n),
+                    torch.clamp(cap / du_n - zu_n, min=0.0)), 0.0)
+                r_ls = r_ls - d_l + d_u
+                zl_ls = zl_n + d_l
+                zu_ls = zu_n + d_u
+                comp_l_ls = torch.where(has_lb, zl_ls * dl_n, 0.0)
+                comp_u_ls = torch.where(has_ub, zu_ls * du_n, 0.0)
+                s_d_ls = _fmax(_div(y_ls.abs().sum(-1) + zl_ls.abs().sum(-1)
+                                    + zu_ls.abs().sum(-1), n_md),
+                               opts.s_max) / opts.s_max
+                s_c_ls = _fmax(_div(zl_ls.abs().sum(-1) + zu_ls.abs().sum(-1),
+                                    n_z), opts.s_max) / opts.s_max
+                parts_ls = (r_ls, parts_n[1], comp_l_ls, comp_u_ls, s_d_ls, s_c_ls)
+            else:
+                y_ls = st.y_ls
+                parts_ls = None
+            inner_err = torch.maximum(e_d_in, e_c_in)
+            inner_done = inner_err <= eff.kappa_inner * mu
+            if opts.stagnation_outer:
+                stagnated = (~bad) & (_inf_norm(dv) <= 1e-5 * (1.0 + _inf_norm(v)))
+                inner_done = inner_done | stagnated
 
-        err0, viol, _, _ = _errors_at(parts_n, zero)
-        if parts_ls is not None:
-            err0 = torch.minimum(err0, _errors_at(parts_ls, zero)[0])
-        conv = (err0 <= eff.tol) & (viol <= feas_target) & (st.phase == 1)
+            # ---- outer updates, applied only when the inner problem is done ----
+            theta_now = th_in
+            feas_target = eff.feas_tol
+            stalled = (theta_now > 0.9 * st.theta_ref) | (eff.gamma_eager > 0)
+            need_feas = theta_now > feas_target
+            need_more = need_feas | (st.kkt_err > eff.tol)
+            gamma_n = torch.where(
+                inner_done & stalled & need_more,
+                torch.maximum(eff.gamma_min, gamma * eff.gamma_shrink), gamma)
+            gamma_n = torch.where(
+                inner_done & (theta_now <= 0.02 * feas_target) & ~need_more,
+                torch.minimum(gamma_n * 2.0, eff.gamma_init), gamma_n)
+            mu_n = torch.where(
+                inner_done,
+                torch.maximum(eff.mu_min, torch.minimum(eff.mu_shrink * mu,
+                                                        mu ** eff.theta_mu)),
+                mu)
+            yhat_n = torch.where(_col(inner_done), y_n, yhat)
+            theta_ref_n = torch.where(inner_done, theta_now, st.theta_ref)
+            v_ref_n = torch.where(_col(inner_done), v_n, st.v_ref)
 
-        # ---- phase-0 exit: cost-descent stall detection ----
-        if phase1 is not None:
-            rel_df = (st.f_prev - f_n) / _fmax(f_n.abs(), 1e-12)
-            is_slow = rel_df < phase1.exit_df.to(dtype)
-            slow_n = torch.where(reject, st.slow,
-                                 torch.where(is_slow, st.slow + 1, 0)).to(torch.int32)
-            leave = (st.phase == 0) & ((slow_n >= phase1.patience)
-                                       | (st.it + 1 >= phase1.n_max))
-            mu2 = p2.mu_init.to(dtype)
-            phase_n = torch.where(leave, 1, st.phase).to(torch.int32)
-            yhat_n = torch.where(_col(leave), y_n, yhat_n)
-            mu_n = torch.where(leave, mu2, mu_n)
-            gamma_n = torch.where(leave, p2.gamma_init.to(dtype), gamma_n)
-            v_ref_n = torch.where(_col(leave), v_n, v_ref_n)
-            theta_ref_n = torch.where(leave, theta_now, theta_ref_n)
-            zl_n = torch.where(_col(leave) & has_lb, mu2 / dl_n, zl_n)
-            zu_n = torch.where(_col(leave) & has_ub, mu2 / du_n, zu_n)
-        else:
-            phase_n = st.phase
-            slow_n = st.slow
+            err0, viol, _, _ = _errors_at(parts_n, zero)
+            if parts_ls is not None:
+                err0 = torch.minimum(err0, _errors_at(parts_ls, zero)[0])
+            conv = (err0 <= eff.tol) & (viol <= feas_target) & (st.phase == 1)
 
-        if opts.verbose:
-            print(f"it={st.it[0].item()} ph={st.phase[0].item()} "
-                  f"mu={mu[0].item():.1e} gam={gamma[0].item():.1e} "
-                  f"err0={err0[0].item():.3e} th={viol[0].item():.3e} "
-                  f"a={alpha[0].item():.2e} dw={delta_w[0].item():.1e} "
-                  f"f={f_n[0].item():.6e}")
+            # ---- phase-0 exit: cost-descent stall detection ----
+            if phase1 is not None:
+                rel_df = (st.f_prev - f_n) / _fmax(f_n.abs(), 1e-12)
+                is_slow = rel_df < phase1.exit_df.to(dtype)
+                slow_n = torch.where(
+                    reject, st.slow,
+                    torch.where(is_slow, st.slow + 1, 0)).to(torch.int32)
+                leave = (st.phase == 0) & ((slow_n >= phase1.patience)
+                                           | (st.it + 1 >= phase1.n_max))
+                mu2 = p2.mu_init.to(dtype)
+                phase_n = torch.where(leave, 1, st.phase).to(torch.int32)
+                yhat_n = torch.where(_col(leave), y_n, yhat_n)
+                mu_n = torch.where(leave, mu2, mu_n)
+                gamma_n = torch.where(leave, p2.gamma_init.to(dtype), gamma_n)
+                v_ref_n = torch.where(_col(leave), v_n, v_ref_n)
+                theta_ref_n = torch.where(leave, theta_now, theta_ref_n)
+                zl_n = torch.where(_col(leave) & has_lb, mu2 / dl_n, zl_n)
+                zu_n = torch.where(_col(leave) & has_ub, mu2 / du_n, zu_n)
+            else:
+                phase_n = st.phase
+                slow_n = st.slow
 
-        new = ALMState(
-            v=v_n, v_ref=v_ref_n, yhat=yhat_n, y_ls=y_ls,
-            zl=zl_n, zu=zu_n, mu=mu_n, gamma=gamma_n,
-            delta_w=delta_next, theta_ref=theta_ref_n, it=st.it + 1,
-            converged=conv, kkt_err=err0,
-            phase=phase_n, f_prev=f_n, slow=slow_n,
-            n0=st.n0 + (st.phase == 0).to(torch.int32),
-        )
-        return _select(st.converged, st._replace(it=st.it + 1), new), ap
+            if opts.verbose:
+                print(f"it={st.it[0].item()} ph={st.phase[0].item()} "
+                      f"mu={mu[0].item():.1e} gam={gamma[0].item():.1e} "
+                      f"err0={err0[0].item():.3e} th={viol[0].item():.3e} "
+                      f"a={alpha[0].item():.2e} dw={delta_w[0].item():.1e} "
+                      f"f={f_n[0].item():.6e}")
+
+            new = ALMState(
+                v=v_n, v_ref=v_ref_n, yhat=yhat_n, y_ls=y_ls,
+                zl=zl_n, zu=zu_n, mu=mu_n, gamma=gamma_n,
+                delta_w=delta_next, theta_ref=theta_ref_n, it=st.it + 1,
+                converged=conv, kkt_err=err0,
+                phase=phase_n, f_prev=f_n, slow=slow_n,
+                n0=st.n0 + (st.phase == 0).to(torch.int32),
+            )
+            return _select(st.converged, st._replace(it=st.it + 1), new), ap
 
     return _Kernel(init_state=init_state, substep=substep,
                    kkt_errors=kkt_errors, f_fn=f_fn, c_fn=c_fn, rebind=rebind)
@@ -668,7 +677,22 @@ def _steps_left(active: torch.Tensor, max_iter: torch.Tensor,
                 it: torch.Tensor) -> int:
     """Steps until the last active lane reaches its budget; 0 when no lane
     is active (one device sync)."""
-    return int(torch.where(active, max_iter - it, 0).max())
+    with span("alm.check"):
+        return profiling.synced_int(torch.where(active, max_iter - it,
+                                                0).max())
+
+
+def _trace_buffers(v: torch.Tensor, max_iter: int) -> tuple:
+    """The six (B, ``max_iter``) record buffers of ``opts.trace``."""
+    return tuple(torch.zeros(v.shape[0], max_iter, dtype=v.dtype,
+                             device=v.device) for _ in range(6))
+
+
+def _pad_trace(trace: tuple, kern: _Kernel, st: ALMState, steps: int) -> None:
+    """The columns after the last step repeat the final state's record."""
+    if steps < trace[0].shape[1]:
+        for buf, x in zip(trace, _record(kern, st)):
+            buf[:, steps:] = x[:, None]
 
 
 # ---------------------------------------------------------------------------
@@ -764,6 +788,7 @@ class _StepProgram:
     advances ``k``, a device index that :meth:`load` sets to 0: it counts
     the steps of one solve, not ``it``.  The caller runs at most
     ``opts.max_iter`` steps.
+
     """
 
     def __init__(self, can: CanonicalNLP, kkt_solve: Callable,
@@ -778,11 +803,8 @@ class _StepProgram:
         self.kern = make_kernel(can, kkt_solve, opts, self.inst, self.st.v)
         self.records = None
         if opts.trace:
-            v = self.st.v
-            self.records = tuple(
-                torch.zeros(v.shape[0], opts.max_iter, dtype=v.dtype,
-                            device=v.device) for _ in range(6))
-            self.k = torch.zeros(1, dtype=torch.int64, device=v.device)
+            self.records = _trace_buffers(self.st.v, opts.max_iter)
+            self.k = torch.zeros(1, dtype=torch.int64, device=self.st.v.device)
         self.graph = None
         self.warm = False
         self.launches: dict = {}     # one replay's launches per wrapper
@@ -819,22 +841,23 @@ class _StepProgram:
 
     def run(self) -> None:
         """One step: a replay, or eagerly on the CPU (see the class)."""
-        if self.graph is not None:
-            self.graph.replay()
-            _add_launches(self.launches)
-        elif self.st.v.device.type != "cuda":
-            self.step()
-        elif not self.warm:
-            dev = self.st.v.device
-            side = torch.cuda.Stream(dev)
-            side.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(side):
-                self.step()
-            torch.cuda.current_stream(dev).wait_stream(side)
-            self.warm = True
-        else:
+        cuda = self.st.v.device.type == "cuda"
+        if cuda and self.warm and self.graph is None:
             self.capture()
-            self.run()
+        with profiling.replay(self.st.v.shape[0], self.graph is not None):
+            if self.graph is not None:
+                self.graph.replay()
+                _add_launches(self.launches)
+            elif not cuda:
+                self.step()
+            else:
+                dev = self.st.v.device
+                side = torch.cuda.Stream(dev)
+                side.wait_stream(torch.cuda.current_stream(dev))
+                with torch.cuda.stream(side):
+                    self.step()
+                torch.cuda.current_stream(dev).wait_stream(side)
+                self.warm = True
 
     def capture(self) -> None:
         """Capture :meth:`step` as a CUDA graph (reads and writes nothing
@@ -843,7 +866,7 @@ class _StepProgram:
         graph = torch.cuda.CUDAGraph()
         before = _launch_counts()
         try:
-            with torch.cuda.graph(graph):
+            with span("alm.capture"), torch.cuda.graph(graph):
                 self.step()
         finally:
             self.launches = _recorded_launches(before)
@@ -923,10 +946,11 @@ def solve(can: CanonicalNLP, kkt_solve: Callable,
                                                                   dev)
     p1 = phase1.params if phase1 is not None else p2
 
-    kern = make_kernel(can, kkt_solve, opts, inst, v0, y0)
-    st = (kern.init_state(p1 if phase1 is not None else p2, p2,
-                          phase1 is not None)
-          if state0 is None else state0)
+    with span("alm.init"):
+        kern = make_kernel(can, kkt_solve, opts, inst, v0, y0)
+        st = (kern.init_state(p1 if phase1 is not None else p2, p2,
+                              phase1 is not None)
+              if state0 is None else state0)
 
     loop = _loop or ("program" if dev.type == "cuda" else "eager")
     if opts.verbose:
@@ -934,8 +958,8 @@ def solve(can: CanonicalNLP, kkt_solve: Callable,
     if loop not in ("eager", "program"):
         raise ValueError(f"unknown loop {loop!r}")
 
-    records = [] if opts.trace else None
-    trace = None
+    trace = (_trace_buffers(v0, opts.max_iter)
+             if opts.trace and loop == "eager" else None)
     steps = 0           # this call's steps: at most opts.max_iter traced
     until_check = 0
     if loop == "program":
@@ -944,7 +968,8 @@ def solve(can: CanonicalNLP, kkt_solve: Callable,
                _signature((inst, st, p2, phase1)))
         prog = programs.get(key, lambda: _StepProgram(
             can, kkt_solve, opts, inst, st, p2, phase1))
-        prog.load(inst, st, p2, phase1)
+        with span("alm.load"):
+            prog.load(inst, st, p2, phase1)
         while True:
             if until_check == 0:
                 left = prog.steps_left()
@@ -956,9 +981,6 @@ def solve(can: CanonicalNLP, kkt_solve: Callable,
             prog.run()
             steps += 1
             until_check -= 1
-        st = ALMState(*[x.clone() for x in prog.st])
-        if opts.trace:
-            trace = tuple(x.clone() for x in prog.records)
     while loop == "eager":
         active = (~st.converged) & (st.it < p2.max_iter)
         if opts.trace and steps == opts.max_iter:
@@ -972,26 +994,25 @@ def solve(can: CanonicalNLP, kkt_solve: Callable,
             until_check = min(_CHECK_EVERY, left)
         st = _select(active, _newton_step(kern, opts, st, p1, p2, phase1), st)
         if opts.trace:
-            records.append(_record(kern, st))
+            for buf, x in zip(trace, _record(kern, st)):
+                buf[:, steps] = x
         steps += 1
         until_check -= 1
 
-    if opts.trace:
-        # the columns after the last step repeat the final state's record
-        if loop == "eager":
-            records += [_record(kern, st)] * (opts.max_iter - steps)
-            trace = tuple(torch.stack(x, dim=1) for x in zip(*records))
-        elif steps < opts.max_iter:
-            for buf, x in zip(trace, _record(kern, st)):
-                buf[:, steps:] = x[:, None]
-
-    cv = kern.c_fn(st.v)
-    y_fin = (st.y_ls if opts.dual_refine_k > 0
-             else st.yhat + cv / _col(st.gamma))
-    _, viol, _, _ = kern.kkt_errors(st.v, y_fin, st.zl, st.zu, 0.0)
-    return ALMResult(
-        v=st.v, y=y_fin, zl=st.zl, zu=st.zu, f=kern.f_fn(st.v),
-        iterations=st.it, converged=st.converged, kkt_err=st.kkt_err,
-        constr_viol=viol, phase1_iters=st.n0, trace=trace,
-        state=st if keep_state else None,
-    )
+    with span("alm.finish"):
+        if loop == "program":
+            st = ALMState(*[x.clone() for x in prog.st])
+            if opts.trace:
+                trace = tuple(x.clone() for x in prog.records)
+        if opts.trace:
+            _pad_trace(trace, kern, st, steps)
+        cv = kern.c_fn(st.v)
+        y_fin = (st.y_ls if opts.dual_refine_k > 0
+                 else st.yhat + cv / _col(st.gamma))
+        _, viol, _, _ = kern.kkt_errors(st.v, y_fin, st.zl, st.zu, 0.0)
+        return ALMResult(
+            v=st.v, y=y_fin, zl=st.zl, zu=st.zu, f=kern.f_fn(st.v),
+            iterations=st.it, converged=st.converged, kkt_err=st.kkt_err,
+            constr_viol=viol, phase1_iters=st.n0, trace=trace,
+            state=st if keep_state else None,
+        )

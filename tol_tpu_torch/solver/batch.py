@@ -26,6 +26,7 @@ from tol_tpu_torch.solver.alm import (ALMOptions, ALMParams, ALMState, Phase1,
                                       ProgramCache, phase_switch_state,
                                       solve as alm_solve)
 from tol_tpu_torch.solver.canonical import CanonicalNLP
+from tol_tpu_torch.utils.profiling import span
 
 
 class GroupedResult(NamedTuple):
@@ -74,20 +75,24 @@ def make_grouped_solver(can: CanonicalNLP, kkt_solve: Callable,
 
     def run_dive(inst, v0s, p1, p2, n_max):
         p1d = p1._replace(max_iter=n_max)
-        out = alm_solve(can, kkt_dive, dive_opts, inst=inst, v0=v0s,
-                        params=p1d, **loop_kw)
-        return phase_switch_state(can, out.state, p2, inst)
+        with span("batch.dive"):
+            out = alm_solve(can, kkt_dive, dive_opts, inst=inst, v0=v0s,
+                            params=p1d, **loop_kw)
+        with span("batch.phase_switch"):
+            return phase_switch_state(can, out.state, p2, inst)
 
     def run_end(inst, st, p2):
-        return alm_solve(can, kkt_solve, opts, inst=inst, params=p2,
-                         state0=st, **loop_kw)
+        with span("batch.endgame"):
+            return alm_solve(can, kkt_solve, opts, inst=inst, params=p2,
+                             state0=st, **loop_kw)
 
     def run_group(inst, v0s, p1, p2, n_max, exit_df):
-        if two_body:
-            return run_end(inst, run_dive(inst, v0s, p1, p2, n_max), p2)
-        ph = Phase1(params=p1, n_max=n_max, exit_df=exit_df, patience=3)
-        return alm_solve(can, kkt_solve, opts, inst=inst, v0=v0s, params=p2,
-                         phase1=ph, **loop_kw)
+        with span("batch.group"):
+            if two_body:
+                return run_end(inst, run_dive(inst, v0s, p1, p2, n_max), p2)
+            ph = Phase1(params=p1, n_max=n_max, exit_df=exit_df, patience=3)
+            return alm_solve(can, kkt_solve, opts, inst=inst, v0=v0s,
+                             params=p2, phase1=ph, **loop_kw)
 
     def run_drain(inst, st, p1, p2, n_max, exit_df):
         ph = Phase1(params=p1, n_max=n_max, exit_df=exit_df, patience=3)
@@ -96,53 +101,61 @@ def make_grouped_solver(can: CanonicalNLP, kkt_solve: Callable,
 
     def solve(group_insts: Sequence, insts, v0s, p1: ALMParams,
               p2: ALMParams, p2_drain: ALMParams, n1, exit_df) -> GroupedResult:
-        n = v0s.shape[0]
-        if n != len(group_insts) * GB:
-            raise ValueError(f"{n} lanes != {len(group_insts)} groups x {GB}")
-        if insts is None:
-            insts = [group_insts[i // GB] for i in range(n)]
-        dev = v0s.device
-        n_max = torch.tensor(n1, dtype=torch.int32, device=dev)
-        xdf = torch.tensor(exit_df, dtype=v0s.dtype, device=dev)
-        outs = [run_group(gi, v0s[g * GB:(g + 1) * GB], p1, p2, n_max, xdf)
-                for g, gi in enumerate(group_insts)]
-        conv, viol, fs, its, kks, vs = [
-            torch.cat([getattr(o, k) for o in outs]).cpu().numpy()
-            for k in _FIELDS]
-        fs = fs.astype(np.float64)
-        group_iters = sum(int(np.max(its[g * GB:(g + 1) * GB]))
-                          for g in range(len(outs)))
-        cap1 = int(p2.max_iter)
-        drain_iters = 0
-        idx = np.flatnonzero(~conv)
-        if len(idx):
-            states = ALMState(*[torch.cat(xs) for xs in
-                                zip(*[o.state for o in outs])])
-            # Chunks of DB unconverged lanes in index order, as the
-            # reference takes them.  A chunk runs one padded drain per
-            # Instance object among its lanes: a lane's result does not
-            # depend on the lanes beside it (converged lanes are frozen by
-            # mask, the exit check is per lane).
-            for k0 in range(0, len(idx), DB):
-                sel = idx[k0:k0 + DB]
-                runs: dict = {}
-                for i in sel:
-                    runs.setdefault(id(insts[i]), (insts[i], []))[1].append(i)
-                for inst, lanes in runs.values():
-                    # Pad to DB lanes with the run's first lane (read back:
-                    # its own lanes only).
-                    pad = np.asarray(lanes + [lanes[0]] * (DB - len(lanes)))
-                    pad_t = torch.as_tensor(pad, device=dev)
-                    sti = ALMState(*[x[pad_t] for x in states])
-                    od = run_drain(inst, sti, p1, p2_drain, n_max, xdf)
-                    m = len(lanes)
-                    own = pad[:m]
-                    d = [getattr(od, k)[:m].cpu().numpy() for k in _FIELDS]
-                    (conv[own], viol[own], fs[own], its[own], kks[own],
-                     vs[own]) = d
-                drain_iters += max(0, int(its[sel].max()) - cap1)
-        return GroupedResult(conv, viol, fs, its, kks, vs, group_iters,
-                             drain_iters)
+        with span("batch.solve"):
+            n = v0s.shape[0]
+            if n != len(group_insts) * GB:
+                raise ValueError(
+                    f"{n} lanes != {len(group_insts)} groups x {GB}")
+            if insts is None:
+                insts = [group_insts[i // GB] for i in range(n)]
+            dev = v0s.device
+            n_max = torch.tensor(n1, dtype=torch.int32, device=dev)
+            xdf = torch.tensor(exit_df, dtype=v0s.dtype, device=dev)
+            outs = [run_group(gi, v0s[g * GB:(g + 1) * GB], p1, p2, n_max,
+                              xdf) for g, gi in enumerate(group_insts)]
+            with span("batch.readback"):
+                conv, viol, fs, its, kks, vs = [
+                    torch.cat([getattr(o, k) for o in outs]).cpu().numpy()
+                    for k in _FIELDS]
+            fs = fs.astype(np.float64)
+            group_iters = sum(int(np.max(its[g * GB:(g + 1) * GB]))
+                              for g in range(len(outs)))
+            cap1 = int(p2.max_iter)
+            drain_iters = 0
+            idx = np.flatnonzero(~conv)
+            if len(idx):
+                states = ALMState(*[torch.cat(xs) for xs in
+                                    zip(*[o.state for o in outs])])
+                # Chunks of DB unconverged lanes in index order, as the
+                # reference takes them.  A chunk runs one padded drain per
+                # Instance object among its lanes: a lane's result does not
+                # depend on the lanes beside it (converged lanes are frozen
+                # by mask, the exit check is per lane).
+                for k0 in range(0, len(idx), DB):
+                    with span("batch.drain_chunk"):
+                        sel = idx[k0:k0 + DB]
+                        runs: dict = {}
+                        for i in sel:
+                            runs.setdefault(id(insts[i]),
+                                            (insts[i], []))[1].append(i)
+                        for inst, lanes in runs.values():
+                            # Pad to DB lanes with the run's first lane (read
+                            # back: its own lanes only).
+                            pad = np.asarray(
+                                lanes + [lanes[0]] * (DB - len(lanes)))
+                            pad_t = torch.as_tensor(pad, device=dev)
+                            sti = ALMState(*[x[pad_t] for x in states])
+                            od = run_drain(inst, sti, p1, p2_drain, n_max, xdf)
+                            m = len(lanes)
+                            own = pad[:m]
+                            with span("batch.readback"):
+                                d = [getattr(od, k)[:m].cpu().numpy()
+                                     for k in _FIELDS]
+                            (conv[own], viol[own], fs[own], its[own],
+                             kks[own], vs[own]) = d
+                        drain_iters += max(0, int(its[sel].max()) - cap1)
+            return GroupedResult(conv, viol, fs, its, kks, vs, group_iters,
+                                 drain_iters)
 
     solve.run_group = run_group
     solve.run_dive, solve.run_end, solve.run_drain = run_dive, run_end, run_drain
