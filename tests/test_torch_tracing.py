@@ -2,10 +2,12 @@
 
 Port only, float64 on the CPU, S10 at ts=8: the recorder off and on, the
 spans the solve path opens (their nesting, parents and request ids, and
-each region of a Newton step once per substep), the replays and checks
-it records by program, the attribution of replay gaps and of device
-operations on synthetic records, and, on the card, that a capture made
-with the recorder on gives the graph and the bits of one made with it off.
+each region of a Newton step once per substep, the dual refinement's
+only where it runs), the replays and checks it records by program, the
+attribution of replay gaps and of device operations on synthetic records,
+and, on the card, that a capture made with the recorder on gives the
+graph and the bits of one made with it off, and that an endgame step's
+regions, ``step.dual_refine`` among them, cover its device time.
 
 This file imports neither JAX nor the JAX package; on a GPU machine:
 
@@ -181,8 +183,10 @@ def test_replays_checks_and_region_spans_on_a_cpu_solve(can):
     assert rec.replays == {"alm.solve[2]": steps}
     assert rec.counts["alm.replay"] == steps
     assert rec.counts["alm.check"] == math.ceil(steps / alm._CHECK_EVERY) + 1
+    # the dive runs no dual refinement: its region never opens
     for r in REGIONS:
-        assert rec.counts[r] == steps, r
+        assert rec.counts.get(r, 0) == (0 if r == "step.dual_refine"
+                                        else steps), r
     assert rec.counts["alm.init"] == rec.counts["alm.load"] == 1
     assert rec.counts["alm.finish"] == 1
     # every region span's parent is the replay that ran it
@@ -190,6 +194,29 @@ def test_replays_checks_and_region_spans_on_a_cpu_solve(can):
     for s in rec.spans:
         if s[0] in REGIONS:
             assert s[1] in replay
+
+
+def test_dual_refine_region_opens_once_per_endgame_step(can):
+    """An endgame solve (``dual_refine_k`` = 4) opens ``step.dual_refine``
+    once per step, inside that step's ``step.update``, beside every other
+    region; the recorder on gives the bits of the recorder off."""
+    steps = 5
+    v0 = _seeds(can, 2, seed=2)
+    kw = dict(v0=v0, params=_params(max_iter=steps, tol=5e-3, feas_tol=1e-4,
+                                     mu_init=6e-5, prox=2.5e-3),
+              _loop="program", keep_state=True)
+    off = alm.solve(can, make_condensed_kkt(can, refine=1),
+                    alm.ALMOptions(**END), **kw)
+    with recording() as rec:
+        on = alm.solve(can, make_condensed_kkt(can, refine=1),
+                       alm.ALMOptions(**END), **kw)
+    for k in alm.ALMState._fields:
+        assert torch.equal(getattr(on.state, k), getattr(off.state, k)), k
+    for r in REGIONS:
+        assert rec.counts[r] == steps, r
+    for s in rec.spans:
+        if s[0] == "step.dual_refine":
+            assert rec.spans[s[1]][0] == "step.update"
 
 
 @pytest.mark.parametrize("two_body", [True, False])
@@ -225,6 +252,10 @@ def test_grouped_solve_spans(can, two_body):
     assert [rec.spans[i][1] for i in chunks] == by["batch.solve"] * len(chunks)
     assert len(by["batch.readback"]) == 1 + len(chunks)
     assert sum(rec.replays.values()) == rec.counts["alm.replay"]
+    # the dual refinement runs once in every endgame and drain step, never
+    # in a dive step
+    assert rec.counts["step.dual_refine"] == (
+        rec.counts["alm.replay"] - rec.replays.get("batch.dive[2]", 0))
     if two_body:
         for stage in ("batch.dive", "batch.phase_switch", "batch.endgame"):
             assert [rec.spans[i][1] for i in by[stage]] == by["batch.group"]
@@ -296,6 +327,31 @@ def test_device_operations_go_to_the_region_that_launched_them():
     assert out["kkt.chain"] == dict(ms=0.0, kernels=0)
 
 
+def test_nested_region_takes_its_kernels_from_the_outer_one():
+    """``step.dual_refine`` opens inside ``step.update``: a kernel launched
+    inside it goes to it alone, the outer region keeps the rest, and the
+    regions with ``unattributed`` still sum to every operation's device
+    time."""
+    cpu, gpu = DeviceType.CPU, DeviceType.CUDA
+    events = [
+        _ev("step.update", cpu, 0, 30), _ev("step.dual_refine", cpu, 10, 20),
+        _ev("cudaLaunchKernel", cpu, 2, 3, id=1),
+        _ev("cudaLaunchKernel", cpu, 12, 13, id=2),
+        _ev("cudaLaunchKernel", cpu, 15, 16, id=3),
+        _ev("cudaLaunchKernel", cpu, 25, 26, id=4),
+        _ev("cudaLaunchKernel", cpu, 35, 36, id=5),
+        _ev("k_1", gpu, 40, 41, id=1), _ev("k_2", gpu, 41, 44, id=2),
+        _ev("k_3", gpu, 44, 48, id=3), _ev("k_4", gpu, 48, 50, id=4),
+        _ev("k_5", gpu, 50, 55, id=5),
+    ]
+    out = profiling.attribute_kernels(events)
+    assert out["step.update"] == dict(ms=pytest.approx(3e-3), kernels=2)
+    assert out["step.dual_refine"] == dict(ms=pytest.approx(7e-3), kernels=2)
+    assert out["unattributed"] == dict(ms=pytest.approx(5e-3), kernels=1)
+    total = sum(out[r]["ms"] for r in (*REGIONS, "unattributed"))
+    assert total == pytest.approx(15e-3)
+
+
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
@@ -362,10 +418,50 @@ def test_capture_with_the_recorder_on_gives_the_same_graph(cuda_device):
     assert all(s < e for _, s, e in rec.intervals)
     sm = rec.summary()
     assert 0 < sm["replay_s"] < sm["window_s"]
-    # one eager step by region: every region launches, next to nothing
-    # runs outside them, and every operation's launch is found
+    # one eager step by region: every region launches but the dual
+    # refinement, which the dive does not run; next to nothing runs outside
+    # them, and every operation's launch is found
     (regions,) = profiling.step_regions({"dive": on.step}).values()
     total = sum(regions[r]["ms"] for r in (*REGIONS, "unattributed"))
-    assert all(regions[r]["kernels"] > 0 for r in REGIONS), regions
+    assert all((regions[r]["kernels"] > 0) == (r != "step.dual_refine")
+               for r in REGIONS), regions
     assert regions["unattributed"]["ms"] < 0.05 * total
     assert regions["unlinked"] == 0
+
+
+@pytest.mark.cuda
+def test_endgame_step_by_region_covers_its_device_time(cuda_device):
+    """float32 S10 at ts=8, 4 lanes, the crp endgame program (refine=1,
+    ``dual_refine_k`` = 4), one eager step after its warm-up: every region
+    launches, ``step.dual_refine`` too, and the regions with
+    ``unattributed`` sum to the step's device busy time (the union of its
+    operations' intervals), each operation counted once."""
+    can = _can(torch.float32, cuda_device)
+    kkt = make_condensed_kkt(can, refine=1, chain="crp")
+    opts = alm.ALMOptions(**END)
+    p = _params(torch.float32, cuda_device, max_iter=400, tol=5e-3,
+                feas_tol=1e-4, mu_init=6e-5, prox=2.5e-3)
+    inst = can.nlp.inst0
+    st = alm.make_kernel(can, kkt, opts, inst, _seeds(can, 4)).init_state(
+        p, p, False)
+    prog = alm._StepProgram(can, kkt, opts, inst, st, p, None)
+    prog.load(inst, st, p, None)
+    prog.run()                      # the warm-up step builds the kernels
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        with recording():
+            prog.step()
+            torch.cuda.synchronize()
+    events = prof.events()
+    regions = profiling.attribute_kernels(events)
+    assert all(regions[r]["kernels"] > 0 for r in REGIONS), regions
+    assert regions["unlinked"] == 0
+    ops = [(e.time_range.start, e.time_range.end) for e in events
+           if e.device_type == DeviceType.CUDA and e.name not in REGIONS
+           and not getattr(e, "is_user_annotation", False)]
+    busy, _ = profiling._union_and_gaps(ops, min(s for s, _ in ops),
+                                        max(e for _, e in ops))
+    total = sum(regions[r]["ms"] for r in (*REGIONS, "unattributed"))
+    assert total == pytest.approx(busy * 1e-3, rel=0.02)

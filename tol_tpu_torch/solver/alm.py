@@ -43,10 +43,10 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
-from torch.func import grad, jvp, vjp
+from torch.func import grad
 
 from tol_tpu_torch.ops import chainkern, crkern
-from tol_tpu_torch.solver.canonical import CanonicalNLP
+from tol_tpu_torch.solver.canonical import CanonicalNLP, constraint_jacobian
 from tol_tpu_torch.utils import profiling
 from tol_tpu_torch.utils.profiling import span
 
@@ -288,6 +288,7 @@ class _Kernel(NamedTuple):
     f_fn: Callable
     c_fn: Callable
     rebind: Callable       # () -> None: bounds recomputed from inst in place
+    dual_refine: Callable  # (v, y, zl, zu, dl, du) -> (y_ls, r_ls)
 
 
 def make_kernel(can: CanonicalNLP, kkt_solve: Callable, opts: ALMOptions,
@@ -326,6 +327,23 @@ def make_kernel(can: CanonicalNLP, kkt_solve: Callable, opts: ALMOptions,
     # per-lane gradient.
     grad_f = grad(lambda v: f_fn(v).sum())
     grad_lag = grad(lambda v, y: (f_fn(v) + (c_fn(v) * y).sum(-1)).sum())
+    jac_at = constraint_jacobian(can)
+
+    def dual_refine(v, y, zl, zu, dl, du):
+        """The least-squares duals at ``v``: ``opts.dual_refine_k`` CG steps
+        from ``y`` on ``J W J^T y = -J W g0``, J = dc/dv by its blocks
+        (taken once here), g0 the objective's gradient less the bound
+        duals, W = 1 / (1 + Sigma) off the fixed variables.  Returns
+        (y_ls, r_ls = g0 + J^T y_ls, 0 on the fixed variables)."""
+        jv, jtv = jac_at(v, inst)
+        g0 = (grad_f(v) - torch.where(has_lb, zl, 0.0)
+              + torch.where(has_ub, zu, 0.0))
+        sig = (torch.where(has_lb, zl / dl, 0.0)
+               + torch.where(has_ub, zu / du, 0.0))
+        w2 = torch.where(fixed, 0.0, 1.0 / (1.0 + sig))
+        y_ls = _cg(lambda yy: jv(w2 * jtv(yy)), -jv(w2 * g0), y,
+                   opts.dual_refine_k)
+        return y_ls, torch.where(fixed, 0.0, g0 + jtv(y_ls))
 
     def interior_push(v):
         bp = opts.bound_push
@@ -547,36 +565,28 @@ def make_kernel(can: CanonicalNLP, kkt_solve: Callable, opts: ALMOptions,
 
             # ---- least-squares dual refinement (see ALMOptions) ----
             if opts.dual_refine_k > 0:
-                jvp_c = lambda t: jvp(c_fn, (v_n,), (t,))[1]
-                _, vjp_fn = vjp(c_fn, v_n)
-                vjp_c = lambda yy: vjp_fn(yy)[0]
-                g0 = (grad_f(v_n) - torch.where(has_lb, zl_n, 0.0)
-                      + torch.where(has_ub, zu_n, 0.0))
-                sig_n = (torch.where(has_lb, zl_n / dl_n, 0.0)
-                         + torch.where(has_ub, zu_n / du_n, 0.0))
-                w2 = torch.where(fixed, 0.0, 1.0 / (1.0 + sig_n))
-                Nop = lambda yy: jvp_c(w2 * vjp_c(yy))
-                y_ls = _cg(Nop, -jvp_c(w2 * g0), y_n, opts.dual_refine_k)
-                r_ls = torch.where(fixed, 0.0, g0 + vjp_c(y_ls))
-                cap = _col(0.5 * eff.tol)
-                d_l = torch.where(has_lb, torch.minimum(
-                    torch.maximum(r_ls, -zl_n),
-                    torch.clamp(cap / dl_n - zl_n, min=0.0)), 0.0)
-                left = r_ls - d_l
-                d_u = torch.where(has_ub, torch.minimum(
-                    torch.maximum(-left, -zu_n),
-                    torch.clamp(cap / du_n - zu_n, min=0.0)), 0.0)
-                r_ls = r_ls - d_l + d_u
-                zl_ls = zl_n + d_l
-                zu_ls = zu_n + d_u
-                comp_l_ls = torch.where(has_lb, zl_ls * dl_n, 0.0)
-                comp_u_ls = torch.where(has_ub, zu_ls * du_n, 0.0)
-                s_d_ls = _fmax(_div(y_ls.abs().sum(-1) + zl_ls.abs().sum(-1)
-                                    + zu_ls.abs().sum(-1), n_md),
-                               opts.s_max) / opts.s_max
-                s_c_ls = _fmax(_div(zl_ls.abs().sum(-1) + zu_ls.abs().sum(-1),
-                                    n_z), opts.s_max) / opts.s_max
-                parts_ls = (r_ls, parts_n[1], comp_l_ls, comp_u_ls, s_d_ls, s_c_ls)
+                with span("step.dual_refine"):
+                    y_ls, r_ls = dual_refine(v_n, y_n, zl_n, zu_n, dl_n, du_n)
+                    cap = _col(0.5 * eff.tol)
+                    d_l = torch.where(has_lb, torch.minimum(
+                        torch.maximum(r_ls, -zl_n),
+                        torch.clamp(cap / dl_n - zl_n, min=0.0)), 0.0)
+                    left = r_ls - d_l
+                    d_u = torch.where(has_ub, torch.minimum(
+                        torch.maximum(-left, -zu_n),
+                        torch.clamp(cap / du_n - zu_n, min=0.0)), 0.0)
+                    r_ls = r_ls - d_l + d_u
+                    zl_ls = zl_n + d_l
+                    zu_ls = zu_n + d_u
+                    comp_l_ls = torch.where(has_lb, zl_ls * dl_n, 0.0)
+                    comp_u_ls = torch.where(has_ub, zu_ls * du_n, 0.0)
+                    s_d_ls = _fmax(_div(y_ls.abs().sum(-1) + zl_ls.abs().sum(-1)
+                                        + zu_ls.abs().sum(-1), n_md),
+                                   opts.s_max) / opts.s_max
+                    s_c_ls = _fmax(_div(zl_ls.abs().sum(-1) + zu_ls.abs().sum(-1),
+                                        n_z), opts.s_max) / opts.s_max
+                    parts_ls = (r_ls, parts_n[1], comp_l_ls, comp_u_ls,
+                                s_d_ls, s_c_ls)
             else:
                 y_ls = st.y_ls
                 parts_ls = None
@@ -652,7 +662,8 @@ def make_kernel(can: CanonicalNLP, kkt_solve: Callable, opts: ALMOptions,
             return _select(st.converged, st._replace(it=st.it + 1), new), ap
 
     return _Kernel(init_state=init_state, substep=substep,
-                   kkt_errors=kkt_errors, f_fn=f_fn, c_fn=c_fn, rebind=rebind)
+                   kkt_errors=kkt_errors, f_fn=f_fn, c_fn=c_fn, rebind=rebind,
+                   dual_refine=dual_refine)
 
 
 def _newton_step(kern: _Kernel, opts: ALMOptions, st: ALMState,

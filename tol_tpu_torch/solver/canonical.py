@@ -5,7 +5,8 @@
 
 with ``v = [dt, Z.flat, s]`` (one slack per inequality boundary row).  ``f``
 and ``c`` act on the last axis: ``v`` (..., n) -> (...) and (..., m), so one
-call evaluates every lane of a batch.
+call evaluates every lane of a batch.  :func:`constraint_jacobian` applies
+``dc/dv`` and its transpose from the collocation blocks.
 """
 
 from __future__ import annotations
@@ -197,6 +198,15 @@ def _scale_nlp(nlp: CollocationNLP, sc: Scaling) -> CollocationNLP:
         defect_fn=defect, boundary_fn=boundary, seed_fn=seed)
 
 
+def _slack_scatter(nlp: CollocationNLP) -> torch.Tensor:
+    """(nb, n_slack): 1 where slack j enters inequality boundary row r."""
+    z_lo0 = nlp.inst0.z_lo
+    ineq_idx = np.flatnonzero(nlp.boundary_is_ineq)
+    G = np.zeros((nlp.nb, len(ineq_idx)))
+    G[ineq_idx, np.arange(len(ineq_idx))] = 1.0
+    return torch.as_tensor(G, dtype=z_lo0.dtype, device=z_lo0.device)
+
+
 def canonicalize(nlp: CollocationNLP,
                  scaling: Scaling | str | None = None) -> CanonicalNLP:
     """Canonical form; ``scaling="auto"`` nondimensionalizes."""
@@ -216,12 +226,8 @@ def canonicalize(nlp: CollocationNLP,
     n = 1 + (T + 1) * NUM_VARS + n_slack
     m = NUM_STATES * T + nlp.nb
 
-    slack_scatter_np = np.zeros((nlp.nb, n_slack))
-    for j, r in enumerate(ineq_idx):
-        slack_scatter_np[r, j] = 1.0
     # on the device once: c() runs inside every step (and a captured one)
-    slack_scatter = torch.as_tensor(slack_scatter_np, dtype=dtype,
-                                    device=device)
+    slack_scatter = _slack_scatter(nlp)
 
     def split(v):
         Z = v[..., 1:1 + (T + 1) * NUM_VARS].reshape(*v.shape[:-1], T + 1,
@@ -266,3 +272,80 @@ def canonicalize(nlp: CollocationNLP,
 
     return CanonicalNLP(nlp=nlp, n=n, m=m, n_slack=n_slack, f=f, c=c,
                         bounds=bounds, scaling=scaling, nlp_phys=nlp_phys)
+
+
+def constraint_jac_blocks(nlp: CollocationNLP):
+    """The collocation constraint Jacobian's blocks, all lanes (and nodes)
+    at once, each by one forward-mode pass over a replica axis
+    (:func:`jacfwd_lanes`).  Returns (defect_jac, bnd_jac)."""
+    def defect_jac(z_i, z_ip1, dt, inst):
+        """(N, 11), (N, 11), (N,) -> dDefect/dz_i (N, 8, 11), dDefect/ddt (N, 8)."""
+        J = jacfwd_lanes(lambda u: nlp.defect(u[..., :NUM_VARS], z_ip1,
+                                              u[..., NUM_VARS], inst),
+                         torch.cat([z_i, dt[:, None]], dim=1))
+        return J[..., :NUM_VARS], J[..., NUM_VARS]
+
+    def bnd_jac(z0, zT, dt, inst):
+        """(B, 11), (B, 11), (B,) -> boundary Jacobian blocks G0, GT, Gdt."""
+        J = jacfwd_lanes(lambda u: nlp.boundary(u[..., :NUM_VARS],
+                                                u[..., NUM_VARS:2 * NUM_VARS],
+                                                u[..., 2 * NUM_VARS], inst),
+                         torch.cat([z0, zT, dt[:, None]], dim=1))
+        return (J[..., :NUM_VARS], J[..., NUM_VARS:2 * NUM_VARS],
+                J[..., 2 * NUM_VARS])
+    return defect_jac, bnd_jac
+
+
+def constraint_jacobian(can: CanonicalNLP):
+    """``J = dc/dv`` of ``can`` from its collocation blocks: returns
+    ``at(v, inst) -> (jv, jtv)``, the products ``J t`` (B, n) -> (B, m) and
+    ``J^T y`` (B, m) -> (B, n) at the lanes ``v`` (B, n).
+
+    Defect row block k is ``A_k dz_k + d_k ddt + dz_{k+1}[:8]`` (a defect
+    is ``z_{k+1}[:8] - ...``, its rows scaled by the states' own scales,
+    so its derivative in z_{k+1} is [I 0]); the boundary rows take
+    ``G0 dz_0 + GT dz_T + Gdt ddt + Gs ds``, Gs the fixed slack scatter.
+    The blocks are taken once per call of ``at``; each product is then a
+    broadcast multiply and a sum over the block axis, so it stays in the
+    lanes' precision (no matrix-multiply library, no TF32)."""
+    nlp = can.nlp
+    T, NS, NV = nlp.T, NUM_STATES, NUM_VARS
+    nz = 1 + (T + 1) * NV
+    defect_jac, bnd_jac = constraint_jac_blocks(nlp)
+    Gs_dev = _slack_scatter(nlp)
+
+    def at(v, inst):
+        B = v.shape[0]
+        Z, dt, _ = can.split(v)
+        A, d = defect_jac(Z[:, :-1].reshape(-1, NV), Z[:, 1:].reshape(-1, NV),
+                          dt[:, None].expand(B, T).reshape(-1), inst)
+        A = A.reshape(B, T, NS, NV)
+        d = d.reshape(B, T, NS)
+        G0, GT, Gdt = bnd_jac(Z[:, 0], Z[:, -1], dt, inst)
+        Gs = Gs_dev.to(dtype=v.dtype, device=v.device)
+        # the boundary rows against [dt, z_0, z_T, s]
+        Gb = torch.cat([Gdt[..., None], G0, GT,
+                        Gs.expand(B, *Gs.shape)], dim=2)
+
+        def jv(t):
+            tZ = t[:, 1:nz].reshape(B, T + 1, NV)
+            tdt = t[:, :1]
+            c_d = ((A * tZ[:, :-1, None, :]).sum(-1) + tZ[:, 1:, :NS]
+                   + d * tdt[..., None])
+            t_b = torch.cat([tdt, tZ[:, 0], tZ[:, T], t[:, nz:]], dim=1)
+            c_b = (Gb * t_b[:, None, :]).sum(-1)
+            return torch.cat([c_d.reshape(B, -1), c_b], dim=1)
+
+        def jtv(y):
+            y_d = y[:, :NS * T].reshape(B, T, NS)
+            g_b = (Gb * y[:, NS * T:, None]).sum(1)     # [dt, z_0, z_T, s]
+            gZ = torch.zeros(B, T + 1, NV, dtype=v.dtype, device=v.device)
+            gZ[:, :-1] = (A * y_d[..., None]).sum(2)
+            gZ[:, 1:, :NS] += y_d
+            gZ[:, 0] += g_b[:, 1:1 + NV]
+            gZ[:, T] += g_b[:, 1 + NV:1 + 2 * NV]
+            g_dt = (d * y_d).sum((1, 2)) + g_b[:, 0]
+            return torch.cat([g_dt[:, None], gZ.reshape(B, -1),
+                              g_b[:, 1 + 2 * NV:]], dim=1)
+        return jv, jtv
+    return at

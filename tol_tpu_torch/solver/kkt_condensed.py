@@ -42,7 +42,8 @@ from tol_tpu_torch.ops.smallalg import (bmm_tn, bmv, bmv_t, cho_solve_outer,
                                         chol_outer, chol_unrolled,
                                         tri_solve_unrolled)
 from tol_tpu_torch.ops.spike import spike_factor, spike_solve
-from tol_tpu_torch.solver.canonical import CanonicalNLP, jacfwd_lanes
+from tol_tpu_torch.solver.canonical import (CanonicalNLP, constraint_jac_blocks,
+                                            jacfwd_lanes)
 from tol_tpu_torch.utils.profiling import span
 
 NS, NV = NUM_STATES, NUM_VARS
@@ -55,7 +56,8 @@ def derivative_blocks(nlp):
     """The per-node and border derivative blocks of the collocation KKT
     system, all lanes (and nodes) at once: gradients by reverse mode over
     the lane sum, Jacobians/Hessians by one forward-mode pass over a replica
-    axis (canonical.jacfwd_lanes).  Returns (node_hess, border_hess,
+    axis (canonical.jacfwd_lanes; the Jacobian blocks are
+    canonical.constraint_jac_blocks).  Returns (node_hess, border_hess,
     defect_jac, bnd_jac)."""
     def node_hess(u, y, inst):
         """(N, 12) node points [z, dt], (N, 8) defect multipliers ->
@@ -78,19 +80,7 @@ def derivative_blocks(nlp):
             return grad(lag)(uu)
         return jacfwd_lanes(lag_grad, u)
 
-    def defect_jac(z_i, z_ip1, dt, inst):
-        """(N, 11), (N, 11), (N,) -> dDefect/dz_i (N, 8, 11), dDefect/ddt (N, 8)."""
-        J = jacfwd_lanes(lambda u: nlp.defect(u[..., :NV], z_ip1, u[..., NV],
-                                              inst),
-                         torch.cat([z_i, dt[:, None]], dim=1))
-        return J[..., :NV], J[..., NV]
-
-    def bnd_jac(z0, zT, dt, inst):
-        """(B, 11), (B, 11), (B,) -> boundary Jacobian blocks G0, GT, Gdt."""
-        J = jacfwd_lanes(lambda u: nlp.boundary(u[..., :NV], u[..., NV:2 * NV],
-                                                u[..., 2 * NV], inst),
-                         torch.cat([z0, zT, dt[:, None]], dim=1))
-        return J[..., :NV], J[..., NV:2 * NV], J[..., 2 * NV]
+    defect_jac, bnd_jac = constraint_jac_blocks(nlp)
     return node_hess, border_hess, defect_jac, bnd_jac
 
 

@@ -9,7 +9,9 @@ metadata operations excepted) of one ``kkt_solve`` of S10 / tempest in
 float32 from the initial point, on the CPU: the structured KKT, and the
 condensed KKT with refine=1 on every chain.  The crp and pallas chains
 run their CPU twins here, which the card replaces by three launches, so
-only the other counts carry over.  Prints one JSON line.
+only the other counts carry over.  ``dual_refine``: one least-squares dual
+refinement of the endgame (``dual_refine_k`` = 4, the Jacobian's blocks and
+the CG over them) at the same point.  Prints one JSON line.
 """
 
 from __future__ import annotations
@@ -38,6 +40,31 @@ class _Count(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
+def refine_point(can, lanes: int, k: int = 4):
+    """A solver kernel with ``dual_refine_k = k`` at the initial point of
+    ``lanes`` lanes, and the arguments of its ``dual_refine`` there."""
+    from tol_tpu_torch.solver import alm
+
+    opts = alm.ALMOptions(dual_refine_k=k)
+    inst = can.nlp.inst0
+    v0 = can.initial_point()[None].repeat(lanes, 1)
+    kern = alm.make_kernel(can, None, opts, inst, v0)
+    p = alm.ALMParams.from_options(opts, v0.dtype, v0.device)
+    st = kern.init_state(p, p, False)
+    lb, ub, fixed = can.bounds(inst)
+    dl = torch.where((lb > -alm._BIG) & ~fixed, st.v - lb, 1.0)
+    du = torch.where((ub < alm._BIG) & ~fixed, ub - st.v, 1.0)
+    return kern, (st.v, st.yhat, st.zl, st.zu, dl, du)
+
+
+def count_ops(fn, *args) -> int:
+    """The aten operations (views excepted) one call of ``fn`` runs."""
+    mode = _Count()
+    with mode:
+        fn(*args)
+    return mode.n
+
+
 def count(ts: int = 100, lanes: int = 2) -> dict:
     from tol_tpu_torch.api import make_problem
     from tol_tpu_torch.solver.canonical import canonicalize
@@ -57,12 +84,9 @@ def count(ts: int = 100, lanes: int = 2) -> dict:
     kkts = {"structured": make_structured_kkt(can)}
     kkts.update({f"condensed_{c}": make_condensed_kkt(can, refine=1, chain=c)
                  for c in CHAINS})
-    out = {}
-    for name, kkt in kkts.items():
-        mode = _Count()
-        with mode:
-            kkt(*args)
-        out[name] = mode.n
+    out = {name: count_ops(kkt, *args) for name, kkt in kkts.items()}
+    kern, rargs = refine_point(can, lanes)
+    out["dual_refine"] = count_ops(kern.dual_refine, *rargs)
     return out
 
 

@@ -68,7 +68,8 @@ def metrics(kind, reqs, sm, regions):
     out["window_steps"] = mix
     if regions:
         tot = sum(mix.values())
-        for r in ("kkt.blocks", "kkt.condense", "step.armijo"):
+        for r in ("kkt.blocks", "kkt.condense", "step.armijo",
+                  "step.dual_refine"):
             out[r + "_ms_per_step"] = sum(
                 n * regions[k][r]["ms"] for k, n in mix.items() if n) / tot
     return out

@@ -38,9 +38,11 @@ from torch.utils._pytree import tree_leaves
 # carries its request id.
 REQUEST_SPANS = ("batch.solve", "mission.leg")
 # The regions of one Newton step (solver/alm.py ``substep``,
-# solver/kkt_condensed.py ``kkt_prepare``); each opens once per substep.
+# solver/kkt_condensed.py ``kkt_prepare``); each opens once per substep,
+# ``step.dual_refine`` (inside ``step.update``) only where the step runs
+# the least-squares dual refinement (``dual_refine_k`` > 0).
 REGIONS = ("step.residuals", "kkt.blocks", "kkt.condense", "kkt.chain",
-           "kkt.solve", "step.armijo", "step.update")
+           "kkt.solve", "step.armijo", "step.update", "step.dual_refine")
 NO_SPAN = "(no span)"
 
 _recorder: Optional["Recorder"] = None   # switched on by recording()
