@@ -4,6 +4,7 @@ Port only, float64 on the CPU, S10 at ts=8: the recorder off and on, the
 spans the solve path opens (their nesting, parents and request ids, and
 each region of a Newton step once per substep, the dual refinement's
 only where it runs), the replays and checks it records by program, the
+gridded wind's span and its counter of interpolated positions, the
 attribution of replay gaps and of device operations on synthetic records,
 and, on the card, that a capture made with the recorder on gives the
 graph and the bits of one made with it off, and that an endgame step's
@@ -16,6 +17,7 @@ This file imports neither JAX nor the JAX package; on a GPU machine:
 
 import json
 import math
+from collections import Counter
 from types import SimpleNamespace
 
 import numpy as np
@@ -24,6 +26,7 @@ import torch
 from torch.autograd import DeviceType
 
 from tol_tpu_torch.api import make_problem
+from tol_tpu_torch.models.wind import WindConfig, wind_with_gradient_ned
 from tol_tpu_torch.solver import alm
 from tol_tpu_torch.solver.batch import make_grouped_solver
 from tol_tpu_torch.solver.canonical import canonicalize
@@ -183,10 +186,12 @@ def test_replays_checks_and_region_spans_on_a_cpu_solve(can):
     assert rec.replays == {"alm.solve[2]": steps}
     assert rec.counts["alm.replay"] == steps
     assert rec.counts["alm.check"] == math.ceil(steps / alm._CHECK_EVERY) + 1
-    # the dive runs no dual refinement: its region never opens
+    # the dive runs no dual refinement and wind model 1 reads no grid:
+    # those regions never open
     for r in REGIONS:
-        assert rec.counts.get(r, 0) == (0 if r == "step.dual_refine"
-                                        else steps), r
+        assert rec.counts.get(r, 0) == (
+            0 if r in ("step.dual_refine", "wind.grid") else steps), r
+    assert rec.counters == {}
     assert rec.counts["alm.init"] == rec.counts["alm.load"] == 1
     assert rec.counts["alm.finish"] == 1
     # every region span's parent is the replay that ran it
@@ -213,7 +218,7 @@ def test_dual_refine_region_opens_once_per_endgame_step(can):
     for k in alm.ALMState._fields:
         assert torch.equal(getattr(on.state, k), getattr(off.state, k)), k
     for r in REGIONS:
-        assert rec.counts[r] == steps, r
+        assert rec.counts.get(r, 0) == (0 if r == "wind.grid" else steps), r
     for s in rec.spans:
         if s[0] == "step.dual_refine":
             assert rec.spans[s[1]][0] == "step.update"
@@ -265,6 +270,92 @@ def test_grouped_solve_spans(can, two_body):
     else:
         assert len(solve.programs.programs) == 1
         assert set(rec.replays) == {"batch.group[2]", "batch.drain_chunk[2]"}
+
+
+# ---------------------------------------------------------------------------
+# the gridded wind's span and counter
+# ---------------------------------------------------------------------------
+
+
+def _storm_wind(**kw):
+    from tol_tpu_torch.io.storm import make_demo_storm_grid
+
+    return WindConfig(model=3, grid=make_demo_storm_grid(device="cpu"),
+                      order=2, east0=17400.0, north0=25800.0, up0=200.0, **kw)
+
+
+@pytest.mark.parametrize("interp", ["separable", "gather"])
+def test_wind_grid_span_counts_the_positions_it_interpolates(interp):
+    """One model-3 wind with its gradient at 5 positions: a ``wind.grid``
+    span for the value (5 positions) and one for the gradient's ``jvp``
+    over the replica axis (3 x 5), so the counter reads 20; the recorder on
+    gives the bits of the recorder off."""
+    cfg = _storm_wind(interp=interp)
+    P = torch.as_tensor(np.random.default_rng(4).uniform(
+        [-300, -300, -300], [500, 500, 100], (5, 3)))
+    off = wind_with_gradient_ned(cfg, P)
+    with recording() as rec:
+        on = wind_with_gradient_ned(cfg, P)
+    assert all(torch.equal(a, b) for a, b in zip(on, off))
+    assert rec.counts == {"wind.grid": 2}
+    assert rec.counters == {"wind.grid.queries": 5 + 3 * 5}
+    assert rec.summary()["counters"] == {"wind.grid.queries": 20}
+
+
+@pytest.mark.parametrize("model", [0, 1, 2, 4, 5])
+def test_no_wind_grid_span_off_the_grid(model):
+    """The analytic wind models interpolate no grid: no ``wind.grid`` span
+    opens and nothing is counted."""
+    P = torch.zeros(4, 3, dtype=torch.float64)
+    with recording() as rec:
+        wind_with_gradient_ned(WindConfig(model=model), P)
+    assert rec.counts == {} and rec.counters == {}
+
+
+def test_wind_grid_is_the_shared_no_op_while_off(monkeypatch):
+    """Off: the grid's span is the shared no-op, no ``record_function``
+    range opens in a storm wind evaluation, and ``count`` adds to
+    nothing."""
+    assert profiling._recorder is None
+    assert span("wind.grid") is profiling._OFF
+
+    def refused(name):
+        raise AssertionError(f"record_function({name!r}) while off")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refused)
+    profiling.count("wind.grid.queries", 7)
+    w, g = wind_with_gradient_ned(_storm_wind(), torch.zeros(3, 3,
+                                                             dtype=torch.float64))
+    assert w.shape == (3, 3) and g.shape == (3, 3, 3)
+    assert profiling._recorder is None
+
+
+def test_wind_grid_opens_inside_the_regions_of_an_eager_storm_step():
+    """S10 on the demo storm grid at ts=8, one eager step of a dive
+    program (``_loop="program"`` on the CPU) with the recorder on: the
+    grid's span opens inside the regions that evaluate the wind (the
+    residuals, the derivative blocks, the line search, the update) and in
+    the solve's set-up and finish, never elsewhere; its counter counts the
+    positions; the recorder on gives the bits of the recorder off."""
+    nlp = make_problem("S10", "tempest", ts=TS, wind_model=3,
+                       wind=_storm_wind(interp="separable"),
+                       dtype=torch.float64, device="cpu")
+    can = canonicalize(nlp, scaling="auto")
+    kw = dict(v0=_seeds(can, 2), params=_params(max_iter=1),
+              _loop="program", keep_state=True)
+    opts = alm.ALMOptions(**DIVE)
+    off = alm.solve(can, make_condensed_kkt(can, refine=0), opts, **kw)
+    with recording() as rec:
+        on = alm.solve(can, make_condensed_kkt(can, refine=0), opts, **kw)
+    for k in alm.ALMState._fields:
+        assert torch.equal(getattr(on.state, k), getattr(off.state, k)), k
+    parents = Counter(rec.spans[s[1]][0] for s in rec.spans
+                      if s[0] == "wind.grid")
+    assert set(parents) == {"alm.init", "step.residuals", "kkt.blocks",
+                            "step.armijo", "step.update", "alm.finish"}
+    assert sum(parents.values()) == rec.counts["wind.grid"]
+    # each evaluation interpolates at least the 2 lanes' 8 nodes
+    assert rec.counters["wind.grid.queries"] >= 2 * TS * rec.counts["wind.grid"]
 
 
 # ---------------------------------------------------------------------------
@@ -419,11 +510,13 @@ def test_capture_with_the_recorder_on_gives_the_same_graph(cuda_device):
     sm = rec.summary()
     assert 0 < sm["replay_s"] < sm["window_s"]
     # one eager step by region: every region launches but the dual
-    # refinement, which the dive does not run; next to nothing runs outside
-    # them, and every operation's launch is found
+    # refinement, which the dive does not run, and the grid, which wind
+    # model 1 does not read; next to nothing runs outside them, and every
+    # operation's launch is found
     (regions,) = profiling.step_regions({"dive": on.step}).values()
     total = sum(regions[r]["ms"] for r in (*REGIONS, "unattributed"))
-    assert all((regions[r]["kernels"] > 0) == (r != "step.dual_refine")
+    assert all((regions[r]["kernels"] > 0)
+               == (r not in ("step.dual_refine", "wind.grid"))
                for r in REGIONS), regions
     assert regions["unattributed"]["ms"] < 0.05 * total
     assert regions["unlinked"] == 0
@@ -456,7 +549,8 @@ def test_endgame_step_by_region_covers_its_device_time(cuda_device):
             torch.cuda.synchronize()
     events = prof.events()
     regions = profiling.attribute_kernels(events)
-    assert all(regions[r]["kernels"] > 0 for r in REGIONS), regions
+    assert all((regions[r]["kernels"] > 0) == (r != "wind.grid")
+               for r in REGIONS), regions
     assert regions["unlinked"] == 0
     ops = [(e.time_range.start, e.time_range.end) for e in events
            if e.device_type == DeviceType.CUDA and e.name not in REGIONS

@@ -15,16 +15,24 @@ Every function takes positions of any leading shape ``(..., 3)``.  The
 stencil's integer index comes from a rounding that carries no tangent, so
 the lowerings run under nested ``torch.func`` transforms (the solver takes
 the wind gradient by one ``jvp`` and Hessians by another on top).
+
+Each model-3 evaluation is the program's span ``wind.grid``, and adds the
+positions it interpolates (replica axes included) to the recorder's
+counter ``wind.grid.queries`` (``utils/profiling.py``; both nothing while
+the recorder is off).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import NamedTuple, Optional
 
 import torch
 from torch.func import jvp
+
+from tol_tpu_torch.utils.profiling import count, span
 
 
 class WindGrid(NamedTuple):
@@ -250,12 +258,14 @@ def wind_enu(cfg: WindConfig, p_enu: torch.Tensor) -> torch.Tensor:
         if cfg.grid is None:
             raise ValueError("wind model 3 requires a WindGrid")
         nx, ny, nz = cfg.grid.u.shape
-        if (cfg.interp == "separable"
-                or (cfg.interp == "auto" and nx * ny * nz <= 65536)):
-            return _grid_interp_separable(cfg.grid, p_enu, cfg.order)
-        if cfg.interp == "onehot":
-            return _grid_interp_onehot(cfg.grid, p_enu, cfg.order)
-        return _grid_interp_gather(cfg.grid, p_enu, cfg.order)
+        with span("wind.grid"):
+            count("wind.grid.queries", math.prod(p_enu.shape[:-1]))
+            if (cfg.interp == "separable"
+                    or (cfg.interp == "auto" and nx * ny * nz <= 65536)):
+                return _grid_interp_separable(cfg.grid, p_enu, cfg.order)
+            if cfg.interp == "onehot":
+                return _grid_interp_onehot(cfg.grid, p_enu, cfg.order)
+            return _grid_interp_gather(cfg.grid, p_enu, cfg.order)
     if model == 4:
         return _dual_thermal(cfg, p_enu)
     if model == 5:

@@ -19,7 +19,11 @@ recorder's pieces on this host.  The last ``on`` window gives:
   (``group_iters + drain_iters``) over its replays (%);
 - ``<region>_ms_per_step`` (batch cells): each region's device ms in one
   eager step of a stage program, weighted by the window's steps per stage
-  (the benchmark's ``harness/reduce.batch_steps``).
+  (the benchmark's ``harness/reduce.batch_steps``); ``wind.grid`` is the
+  gridded wind's interpolation (wind model 3), wherever it runs;
+- ``wind.grid_queries_per_step`` (batch cells): the positions the gridded
+  wind interpolated in those eager steps (the recorder's counter
+  ``wind.grid.queries``), weighted the same way.
 
 Prints one JSON line; with ``--out`` also writes it to
 ``DIR/trace_<workload>_<seed>.json``.  Reads the benchmark's code and
@@ -69,9 +73,12 @@ def metrics(kind, reqs, sm, regions):
     if regions:
         tot = sum(mix.values())
         for r in ("kkt.blocks", "kkt.condense", "step.armijo",
-                  "step.dual_refine"):
+                  "step.dual_refine", "wind.grid"):
             out[r + "_ms_per_step"] = sum(
                 n * regions[k][r]["ms"] for k, n in mix.items() if n) / tot
+        out["wind.grid_queries_per_step"] = sum(
+            n * regions[k].get("wind.grid.queries", 0)
+            for k, n in mix.items() if n) / tot
     return out
 
 

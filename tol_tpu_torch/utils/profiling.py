@@ -40,9 +40,12 @@ REQUEST_SPANS = ("batch.solve", "mission.leg")
 # The regions of one Newton step (solver/alm.py ``substep``,
 # solver/kkt_condensed.py ``kkt_prepare``); each opens once per substep,
 # ``step.dual_refine`` (inside ``step.update``) only where the step runs
-# the least-squares dual refinement (``dual_refine_k`` > 0).
+# the least-squares dual refinement (``dual_refine_k`` > 0), and
+# ``wind.grid`` (models/wind.py, the gridded field's interpolation) inside
+# whichever region evaluates wind model 3, once per evaluation.
 REGIONS = ("step.residuals", "kkt.blocks", "kkt.condense", "kkt.chain",
-           "kkt.solve", "step.armijo", "step.update", "step.dual_refine")
+           "kkt.solve", "step.armijo", "step.update", "step.dual_refine",
+           "wind.grid")
 NO_SPAN = "(no span)"
 
 _recorder: Optional["Recorder"] = None   # switched on by recording()
@@ -127,13 +130,15 @@ class Recorder(stage_timer):
     ``spans``: ``[name, parent index, request id, start ns, end ns]`` in
     the order they opened; ``intervals``: ``(program, start ns, end ns)``
     of each timed replay on the host's clock; ``replays``: replays by
-    program name; ``window``: the recording's start and end."""
+    program name; ``counters``: what :func:`count` added, by name;
+    ``window``: the recording's start and end."""
 
     def __init__(self):
         super().__init__()
         self.spans: list = []
         self.intervals: list = []
         self.replays: Counter = Counter()
+        self.counters: Counter = Counter()
         self.window = [time.perf_counter_ns(), None]
         self._stack: list = []
         self._requests = 0
@@ -186,9 +191,9 @@ class Recorder(stage_timer):
         the replays' device intervals (``replay_s``), the gaps between
         them and at the window's two edges in seconds by the innermost
         span open on the host through each part of a gap
-        (:func:`split_gaps`), replays by program, and each span name's
-        count, total and self seconds (self: less the time its child
-        spans cover)."""
+        (:func:`split_gaps`), replays by program, the counters, and each
+        span name's count, total and self seconds (self: less the time its
+        child spans cover)."""
         t0, t1 = self.window
         t1 = t1 if t1 is not None else time.perf_counter_ns()
         busy, gaps = _union_and_gaps(
@@ -205,7 +210,7 @@ class Recorder(stage_timer):
         return dict(
             window_s=(t1 - t0) * 1e-9, replay_s=busy * 1e-9,
             gaps={k: v * 1e-9 for k, v in split_gaps(spans, gaps).items()},
-            replays=dict(self.replays),
+            replays=dict(self.replays), counters=dict(self.counters),
             spans={k: dict(n=self.counts[k], total_s=self.totals[k],
                            self_s=self_ns[k] * 1e-9)
                    for k in sorted(self.totals)},
@@ -260,6 +265,14 @@ def span(name: str):
     recorder is off, else a ``record_function`` range recorded in memory."""
     rec = _recorder
     return _OFF if rec is None else _Span(rec, name)
+
+
+def count(name: str, n: int) -> None:
+    """Add ``n`` (a host number, never read from a tensor) to the
+    recorder's counter ``name``; nothing while the recorder is off."""
+    rec = _recorder
+    if rec is not None:
+        rec.counters[name] += n
 
 
 def replay(lanes: int, timed: bool):
@@ -403,15 +416,17 @@ def attribute_kernels(events, regions=REGIONS) -> dict:
 def step_regions(steps: Dict[str, Callable[[], None]]) -> dict:
     """Run each of ``steps`` (name -> one eager solver step on a CUDA
     device) once, in a profiler session of its own with the recorder on,
-    and split its device time by region (:func:`attribute_kernels`)."""
+    and split its device time by region (:func:`attribute_kernels`); the
+    recorder's counters of the step are added as numbers beside the
+    regions."""
     from torch.profiler import ProfilerActivity, profile
 
     out = {}
     for name, step in steps.items():
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            with recording():
+            with recording() as rec:
                 step()
                 torch.cuda.synchronize()
-        out[name] = attribute_kernels(prof.events())
+        out[name] = {**attribute_kernels(prof.events()), **rec.counters}
     return out
