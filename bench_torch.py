@@ -562,9 +562,10 @@ def _card(device):
 def _launches():
     from tol_tpu_torch.ops import chainkern as ch
     from tol_tpu_torch.ops import crkern as ck
+    from tol_tpu_torch.ops import nodekern as nk
 
     return {getattr(k, "kernel", k.__name__): k.launches
-            for k in ck.KERNELS + ch.KERNELS}
+            for k in ck.KERNELS + ch.KERNELS + nk.KERNELS}
 
 
 def _reset_peak(device) -> None:
@@ -590,6 +591,7 @@ def main() -> dict:
     s = settings()
     from tol_tpu_torch.ops import chainkern as ch
     from tol_tpu_torch.ops import crkern as ck
+    from tol_tpu_torch.ops import nodekern as nk
     from tol_tpu_torch.utils.cache import enable_compile_cache
     from tol_tpu_torch.utils.flops import peak_flops
 
@@ -601,6 +603,7 @@ def main() -> dict:
     cache_start = _cache_entries()
     ck.reset_launch_counts()
     ch.reset_launch_counts()
+    nk.reset_launch_counts()
     compile_s, seeds, graphs = {}, {}, {}
     GB, DB = s.group, s.drain
     _reset_peak(s.device)

@@ -21,8 +21,11 @@ Phases, each of which must pass (any failure exits non-zero and prints no
              and 1 (each takes the level-0 operands and runs the 7 levels
              and the root step in one launch; K5 is K1 with no rhs);
              the sequential-chain kernels K6-K8 at T=100 blocks, B=128
-             lanes, border widths 12 and 14.  Each case includes a lane
-             with an indefinite pivot that must come out NaN in that lane
+             lanes, border widths 12 and 14; K9's ``node_blocks`` and
+             ``defect_blocks`` at 128 lanes of S10 / tempest / wind model 1
+             at ts=100, float32, against the float64 torch.func transforms
+             (``TOL_NODE``).  Each case includes a lane with an indefinite
+             pivot (for K9, a NaN node) that must come out NaN in that lane
              only.  Kernel, twin and a library yardstick are timed with
              CUDA events, each kernel also by its own device time under
              torch.profiler, both warm (the operands in the 50 MB L2 from
@@ -59,7 +62,8 @@ Phases, each of which must pass (any failure exits non-zero and prints no
              tempest / wind model 3 on the demo storm grid (order 2,
              interp "auto": separable), a 4-trial endgame, group cap 175,
              128 lanes, gated against ``tests/golden_storm_ts100.npy``
-             (>= 90% of the lanes must pass).
+             (>= 90% of the lanes must pass); K9 must not run (wind
+             model 3 keeps the transforms).
    replan  — bench.py config 4 through the mission layer: a cold G7 /
              skywalker leg of 128 seed lanes in 48-iteration slices, then
              ``REPLANS`` goals drawn as bench.py draws them, each
@@ -116,8 +120,8 @@ Phases, each of which must pass (any failure exits non-zero and prints no
              first group's dive, switch, endgame and drain at the depth
              ``PATHS_DEPTH`` eagerly and captured: every ALMState field
              bit-equal, equal launches, and exactly the hand kernels of
-             the path launched (K1-K3 for the crp paths, none for the
-             plain ones); the dense KKT at ts=24 and 8 lanes, the rest at
+             the path launched (K1-K3 for the crp paths, and K9 for those
+             under wind model 1); the dense KKT at ts=24 and 8 lanes, the rest at
              ts=100 and 128.  Then full-width solves (128 lanes, ts=100,
              bench.py's constants): cr, onehot and gather gated as s10
              and storm are (>= 90%), scan, spike and the structured KKT
@@ -165,6 +169,7 @@ FP32_FLOP_PER_S = 67e12
 DEP_OP_CYCLES = 4
 
 NB = 11                 # node block size
+NS_DEFECT = 8           # defect rows of a node (the dynamic states)
 TS = 100                # collocation intervals of every solve = chain blocks
 B_LANES = 128           # lanes per group / drain chunk
 S10_LANES = 256         # lanes of the S10 crp solve: two groups
@@ -189,6 +194,9 @@ TOL_CHAINS = 1e-3       # chain solves vs the dense yardstick, relative
 
 CR_SOURCE = "tol_tpu_torch/csrc/crkern.cu"
 CHAIN_SOURCE = "tol_tpu_torch/csrc/chainkern.cu"
+NODE_SOURCE = "tol_tpu_torch/csrc/nodekern.cu"
+NODE_REPLACES = ("none: tol_tpu/solver/kkt_condensed.py:80 and :88 take the "
+                 "node blocks by jax.hessian and jax.jacfwd")
 # kernel -> (source, the TPU kernel it replaces)
 KERNELS = {
     "crp_factor_fwd_pass": (
@@ -203,6 +211,8 @@ KERNELS = {
     "chain_rhs_forward": (
         CHAIN_SOURCE, "tol_tpu/ops/chainkern.py:170 _rhs_forward_kernel"),
     "chain_back_sub": (CHAIN_SOURCE, "tol_tpu/ops/chainkern.py:201 _bwd_kernel"),
+    "node_blocks": (NODE_SOURCE, NODE_REPLACES),
+    "defect_blocks": (NODE_SOURCE, NODE_REPLACES),
 }
 # the crp kernels of a solve path, and those of crp_factor alone
 CR_PASS_KERNELS = ("crp_factor_fwd_pass", "crp_fwd_pass", "crp_bwd_pass")
@@ -214,8 +224,20 @@ SYMBOLS = {"crp_factor_fwd_pass": "factor_fwd_pass_kernel",
            "crp_factor_pass": "factor_pass_kernel",
            "chain_factor": "chain_factor_kernel",
            "chain_rhs_forward": "chain_rhs_forward_kernel",
-           "chain_back_sub": "chain_back_sub_kernel"}
+           "chain_back_sub": "chain_back_sub_kernel",
+           "node_blocks": "node_blocks_kernel",
+           "defect_blocks": "defect_blocks_kernel"}
 CHAIN_KERNELS = ("chain_factor", "chain_rhs_forward", "chain_back_sub")
+# K9: a Newton step's node blocks under wind models 0 and 1, and the dual
+# refinement's Jacobian blocks (endgame and drain: dual_refine_k > 0)
+NODE_KERNELS = ("node_blocks", "defect_blocks")
+# K9 against the float64 transforms at the same float32 points: float32's
+# rounding of a few thousand operations a node (about 4e-7 measured)
+TOL_NODE = 1e-5
+# K9's floating-point operations a node (nk::node_blocks over a counting
+# number type on the host; constants included, so an upper count): with the
+# Hessian, and A and d alone
+NODE_FLOPS = {"node_blocks": 6398, "defect_blocks": 1621}
 # Dependent fp32 operations on the critical path of one chain block:
 # K6: Cholesky column j waits for j products, a square root and a
 # division (sum over 11 columns: 77); one column of the inverse is a
@@ -271,12 +293,16 @@ def _kernel_name(wrapper) -> str:
 
 
 def _launch_counts(ck, ch) -> dict:
-    return {_kernel_name(k): k.launches for k in ck.KERNELS + ch.KERNELS}
+    from tol_tpu_torch.ops import nodekern as nk
+    return {_kernel_name(k): k.launches
+            for k in ck.KERNELS + ch.KERNELS + nk.KERNELS}
 
 
 def _reset_launch_counts(ck, ch) -> None:
+    from tol_tpu_torch.ops import nodekern as nk
     ck.reset_launch_counts()
     ch.reset_launch_counts()
+    nk.reset_launch_counts()
 
 
 # ---------------------------------------------------------------------------
@@ -295,6 +321,8 @@ def _ptxas_by_kernel(reports):
             group = re.search(r"ILi(\d+)E", ln)
             if cur and group:
                 cur = f"{cur}[G={group.group(1)}]"
+            elif cur and "IdE" in ln:     # K9's double instantiation
+                cur = f"{cur}[f64]"
             if cur:
                 out[cur] = {}
         elif cur and "spill stores" in ln:
@@ -602,6 +630,77 @@ def _chain_cases(torch, ch, gen, dev):
     return cases
 
 
+def _node_cases(torch, gen, dev):
+    """K9's two entry points at the solves' shape: S10 / tempest, wind model
+    1, scaled, B=128 lanes of T=100 (12928 nodes; A and d of the 12800 with
+    a defect), float32, at points moved off the seed trajectory, against
+    the torch.func transforms in float64 at the same points.  The solver
+    adds the node cost's Hessian beside the launch, so ``plain`` takes it
+    out of the transforms' Hn.  The NaN lane: one node of lane ``col`` is
+    NaN."""
+    import dataclasses
+
+    from tol_tpu_torch.api import make_problem
+    from tol_tpu_torch.ops import nodekern
+    from tol_tpu_torch.solver.canonical import (Scaling, canonicalize,
+                                                kernel_args)
+    from tol_tpu_torch.solver.kkt_condensed import derivative_blocks
+
+    mk = lambda dtype: make_problem("S10", aircraft="tempest", ts=TS,
+                                    wind_model=1, dtype=dtype, device=dev)
+    c32 = canonicalize(mk(torch.float32), scaling="auto")
+    c64 = canonicalize(mk(torch.float64),
+                       Scaling(*[t.double() for t in c32.scaling]))
+    # the float64 problem by the transforms
+    c64 = dataclasses.replace(c64, nlp=dataclasses.replace(
+        c64.nlp, affine_wind_model=None))
+    nlp64, inst64 = c64.nlp, c64.nlp.inst0
+    blocks64, _, jac64, _ = derivative_blocks(c64)
+    par, fld = kernel_args(c32)(c32.nlp.inst0)
+    lb, ub, fixed = c32.bounds(c32.nlp.inst0)
+    v = c32.initial_point()[None] + 0.1 * torch.randn(
+        B_LANES, c32.n, generator=gen, device=dev)
+    v = torch.where(fixed, lb, torch.minimum(torch.maximum(v, lb), ub))
+    Z, dt, _ = c32.split(v)
+    Z, dt = Z.contiguous(), dt.contiguous()
+    y = torch.randn(B_LANES, TS, NS_DEFECT, generator=gen, device=dev)
+
+    def node(Z, dt, y):
+        Hn, A, d = nodekern.node_blocks(Z, dt, y, par, fld)
+        return Hn, A[:, :TS], d[:, :TS]
+
+    def node_plain(Z, dt, y):
+        Zw, dtw = Z.double(), dt.double()
+        Hn, A, d = blocks64(Zw, dtw, y.double(), inst64)
+        Hn[..., :NB, :NB] -= nlp64.node_cost_hess(Zw, dtw[:, None], inst64)
+        return Hn, A, d
+
+    def poison(torch, args, col):
+        args[0][col, 1] = float("nan")
+
+    fl = 4
+    nodes = B_LANES * (TS + 1)
+    out_h = (NB + 1) ** 2 + NS_DEFECT * NB + NS_DEFECT
+    out_j = NS_DEFECT * NB + NS_DEFECT
+    return {
+        "node_blocks": dict(
+            kernel=node, plain=node_plain, inputs=[(Z, dt, y)],
+            poison=poison, nan_must=(0, 1, 2), tol=TOL_NODE,
+            # z and the outputs of every node, the lanes' dt, the
+            # multipliers of the T defects, the 17 airframe and scale numbers
+            bytes=fl * (nodes * (NB + out_h) + B_LANES
+                        + B_LANES * TS * NS_DEFECT + nodekern.PAR_FLOATS),
+            flops=nodes * NODE_FLOPS["node_blocks"]),
+        "defect_blocks": dict(
+            kernel=lambda Z, dt: nodekern.defect_blocks(Z, dt, par, fld),
+            plain=lambda Z, dt: jac64(Z.double(), dt.double(), inst64),
+            inputs=[(Z, dt)], poison=poison, nan_must=(0, 1), tol=TOL_NODE,
+            bytes=fl * (B_LANES * TS * (NB + out_j) + B_LANES
+                        + nodekern.PAR_FLOATS),
+            flops=B_LANES * TS * NODE_FLOPS["defect_blocks"]),
+    }
+
+
 def check_kernels(torch, ck, ch, dev, latency):
     """Phase 2.  Returns the per-kernel records of the kernels line;
     ``latency`` holds the clock phase's cycles per sqrt, quotient and FMA."""
@@ -609,6 +708,7 @@ def check_kernels(torch, ck, ch, dev, latency):
     sm_hz = float(_nvidia_smi("clocks.max.sm").split()[0]) * 1e6
     cases = _cr_cases(torch, ck, gen, dev)
     cases.update(_chain_cases(torch, ch, gen, dev))
+    cases.update(_node_cases(torch, gen, dev))
     flush = torch.empty(L2_FLUSH_BYTES // 4, device=dev)
     records = {}
     for name, case in cases.items():
@@ -620,8 +720,9 @@ def check_kernels(torch, ck, ch, dev, latency):
             torch.cuda.synchronize()
             a, r = _compare(torch, got, ref)
             abs_err, rel_err = max(abs_err, a), max(rel_err, r)
-        _require(rel_err <= TOL_REL,
-                 f"{name}: kernel vs twin relative error {rel_err:.3e} > {TOL_REL}")
+        tol = case.get("tol", TOL_REL)
+        _require(rel_err <= tol,
+                 f"{name}: kernel vs twin relative error {rel_err:.3e} > {tol}")
         # NaN lane: an indefinite pivot (or a NaN factor) poisons one lane.
         args = _clone(case["inputs"][0])
         col = 1
@@ -661,6 +762,7 @@ def check_kernels(torch, ck, ch, dev, latency):
         records[name] = dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=0, max_abs_err=abs_err, max_rel_err=rel_err,
+            tolerance_rel=tol,
             ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             library_ms=None, device_ms=device_ms, ms_cold_l2=ms_cold,
@@ -799,7 +901,8 @@ def check_chains(torch, ck, ch, dev, m=12):
     split = rec["launches_by_way"]["crp_factor_then_solve"]
     _require(split == dict(crp_factor_pass=1, crp_fwd_pass=1, crp_bwd_pass=1),
              f"crp_factor + crp_solve: launches {split}, want K5, K2, K3 once")
-    _require(all(v > 0 for v in launches.values()),
+    # every kernel of a chain solve (K9 takes no part in one)
+    _require(all(v > 0 for k, v in launches.items() if k not in NODE_KERNELS),
              f"a kernel was never launched by the chain solves: {launches}")
     for name, fn in ways.items():
         rec[f"{name}_ms"] = _time_ms(torch, fn, 20)
@@ -982,7 +1085,8 @@ def run_solves(torch, ck, ch, dev):
     by_path = {}
     s10 = make_mission(torch, "S10", S10_LANES, dev)
     rec, by_path["s10"], gap_crp = run_solve(
-        torch, ck, ch, "s10", s10, S10_LANES, "crp", CR_PASS_KERNELS)
+        torch, ck, ch, "s10", s10, S10_LANES, "crp",
+        CR_PASS_KERNELS + NODE_KERNELS)
     # bench.py's gate: KKT certificate, feasibility and the cost gap.
     _require(rec["gated_pass_with_cost_gap"] >= 0.9 * S10_LANES,
              f"s10 gate: {rec['gated_pass_with_cost_gap']}/{S10_LANES} lanes "
@@ -990,7 +1094,8 @@ def run_solves(torch, ck, ch, dev):
 
     g7 = make_mission(torch, "G7", B_LANES, dev)
     rec, by_path["g7"], _ = run_solve(
-        torch, ck, ch, "g7", g7, B_LANES, "crp", CR_PASS_KERNELS)
+        torch, ck, ch, "g7", g7, B_LANES, "crp",
+        CR_PASS_KERNELS + NODE_KERNELS)
     # bench.py's G7 gate has no cost term (its cost has no unique optimal
     # value at working tolerance); the gap against the best-known point is
     # informational.
@@ -1001,7 +1106,7 @@ def run_solves(torch, ck, ch, dev):
     # The same first 128 S10 seeds with the sequential chain in the dive.
     rec, by_path["s10_seqdive"], gap_seq = run_solve(
         torch, ck, ch, "s10_seqdive", s10, B_LANES, "pallas",
-        CR_PASS_KERNELS + CHAIN_KERNELS)
+        CR_PASS_KERNELS + CHAIN_KERNELS + NODE_KERNELS)
     _require(rec["converged_and_feasible"] >= 0.9 * B_LANES,
              f"s10_seqdive: {rec['converged_and_feasible']}/{B_LANES} lanes "
              "converged and feasible (< 90%)")
@@ -1027,6 +1132,9 @@ def run_storm(torch, ck, ch, dev):
     storm = make_mission(torch, "storm", STORM_LANES, dev)
     rec, launches, _ = run_solve(torch, ck, ch, "storm", storm, STORM_LANES,
                                  "crp", CR_PASS_KERNELS)
+    # wind model 3 is not affine in position: the transforms take its blocks
+    _require(not any(launches[k] for k in NODE_KERNELS),
+             f"storm: K9 launched under wind model 3: {launches}")
     _require(rec["gated_pass_with_cost_gap"] >= 0.9 * STORM_LANES,
              f"storm gate: {rec['gated_pass_with_cost_gap']}/{STORM_LANES} "
              "lanes pass (< 90%)")
@@ -1644,9 +1752,13 @@ def run_graph(torch, ck, ch, dev):
                 for k in KERNELS}
     for r in recs:
         # the dive's chain, and the endgame's (crp) where it ran
+        # and K9 under s10's wind model 1 (A, d in the endgame's refinement)
         want = ((CHAIN_KERNELS if r["dive_chain"] == "pallas"
                  else CR_PASS_KERNELS)
                 + (CR_PASS_KERNELS if "endgame" in r["stages"] else ()))
+        if r["path"] != "storm":
+            want += NODE_KERNELS if "endgame" in r["stages"] else (
+                "node_blocks",)
         profs = [p for p in r["replay"].values()
                  if isinstance(p, dict) and "kernel_nodes" in p]
         named = {k for p in profs for k in p["hand_kernels_in_replay"]}
@@ -1671,13 +1783,15 @@ TRACE_ITERS = 64            # steps of the traced dive
 # radius; FakeAutopilot starts about (96, 170) m from the datum (as
 # tests/make_mission_golden.py)
 MISSION_GOAL = (275.0, 170.0, 0.0, 100.0)
-# path: (problem, dive chain, endgame chain, the hand kernels it launches)
+# path: (problem, dive chain, endgame chain, the hand kernels it launches);
+# S10 is on wind model 1, so K9 takes its node blocks (the dense KKT takes
+# its Hessian whole, so there only the endgame's refinement launches K9)
 PATHS = {
-    "structured": ("S10", "structured", "structured", ()),
-    "dense": ("S10_ts24", "dense", "dense", ()),
-    "scan": ("S10", "scan", "scan", ()),
-    "cr": ("S10", "cr", "cr", ()),
-    "spike": ("S10", "spike", "spike", ()),
+    "structured": ("S10", "structured", "structured", NODE_KERNELS),
+    "dense": ("S10_ts24", "dense", "dense", ("defect_blocks",)),
+    "scan": ("S10", "scan", "scan", NODE_KERNELS),
+    "cr": ("S10", "cr", "cr", NODE_KERNELS),
+    "spike": ("S10", "spike", "spike", NODE_KERNELS),
     "wind2": ("wind2", "crp", "crp", CR_PASS_KERNELS),
     "wind4": ("wind4", "crp", "crp", CR_PASS_KERNELS),
     "wind5": ("wind5", "crp", "crp", CR_PASS_KERNELS),
@@ -1842,7 +1956,9 @@ def run_paths_trace(torch, ck, ch, dev) -> dict:
     _require(rec["launches"]["eager"] == rec["launches"]["graph"],
              "paths trace: launches differ")
     _require(rec["captures"] == 1, "paths trace: not one captured program")
-    _path_kernels_ok("trace", rec["launches"]["graph"], CR_PASS_KERNELS)
+    # the dive: no dual refinement, so K9's node_blocks alone
+    _path_kernels_ok("trace", rec["launches"]["graph"],
+                     CR_PASS_KERNELS + ("node_blocks",))
     return rec["launches"]["graph"]
 
 
@@ -1898,7 +2014,7 @@ def run_paths_mission(torch, ck, ch) -> dict:
         wall_s=wall, points=len(traj), captures=solve_leg.programs.captures,
         capture_s=solve_leg.programs.capture_s,
         captures_on_legs=grew, launches=launches,
-        kernels_on_path="none: chain cr is plain torch",
+        kernels_on_path=list(NODE_KERNELS),
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
     with open(os.path.join(HERE, "tests", "golden_mission_ts100.json")) as fh:
         gold = json.load(fh)["legs"]
@@ -1916,7 +2032,8 @@ def run_paths_mission(torch, ck, ch) -> dict:
     _require(grew == sorted(first.values())
              and rec["captures"] == len(first),
              f"mission: captures on legs {grew}, first legs {first}")
-    _path_kernels_ok("mission", launches, ())
+    # chain cr is plain torch; wind model 1 puts the node blocks on K9
+    _path_kernels_ok("mission", launches, NODE_KERNELS)
     return launches
 
 

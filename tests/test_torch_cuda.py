@@ -365,3 +365,126 @@ def test_cuda_chain_kernels_refuse_a_bad_launch_shape(cuda_device):
         ch._rhs_forward_batched(M, z(4, 11, 11, 8), z(4, 11, 12, 8),
                                 z(4, 11, 1, 8), group=4, threads=64)
     assert ch._factor_eliminate_batched.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mission,aircraft", [("S10", "tempest"),
+                                              ("G7", "skywalker")])
+def test_cuda_node_blocks_match_the_transforms(cuda_device, mission, aircraft):
+    """K9 at the flagship's width (128 lanes of ts=100, wind model 1,
+    scaled) against the float64 transforms at the same points on the card:
+    Hn, A, d of one node_blocks launch and A, d of one defect_blocks launch,
+    in float32 to 1e-5 of each block's largest entry (float32 rounding of a
+    few thousand operations), in float64 to 1e-12; mixed dtypes and CPU
+    operands are refused."""
+    import dataclasses
+
+    from tol_tpu_torch.api import make_problem
+    from tol_tpu_torch.ops import nodekern
+    from tol_tpu_torch.solver.canonical import (Scaling, canonicalize,
+                                                closed_form_blocks,
+                                                kernel_args)
+    from tol_tpu_torch.solver.kkt_condensed import derivative_blocks
+
+    nlp = lambda dt: make_problem(mission, aircraft, ts=100, wind_model=1,
+                                  dtype=dt, device=cuda_device)
+    c32 = canonicalize(nlp(torch.float32), "auto")
+    c64 = canonicalize(nlp(torch.float64),
+                       Scaling(*[t.double() for t in c32.scaling]))
+    assert closed_form_blocks(c32.nlp) and closed_form_blocks(c64.nlp)
+    transforms = dataclasses.replace(c64, nlp=dataclasses.replace(
+        c64.nlp, affine_wind_model=None))
+    assert not closed_form_blocks(transforms.nlp)
+
+    rng = np.random.default_rng(11)
+    B, T = 128, 100
+    lb, ub, fixed = c32.bounds(c32.nlp.inst0)
+    v = c32.initial_point()[None] + torch.as_tensor(
+        0.1 * rng.standard_normal((B, c32.n)), dtype=torch.float32,
+        device=cuda_device)
+    v = torch.where(fixed, lb, torch.minimum(torch.maximum(v, lb), ub))
+    y = torch.as_tensor(rng.standard_normal((B, T, 8)), dtype=torch.float32,
+                        device=cuda_device)
+    Zw, dtw, _ = c64.split(v.double())
+    nb, _, dj, _ = derivative_blocks(transforms)
+    want = nb(Zw, dtw, y.double(), transforms.nlp.inst0) + dj(
+        Zw, dtw, transforms.nlp.inst0)
+    for can, tol in ((c32, 1e-5), (c64, 1e-12)):
+        Z, dt, _ = can.split(v.to(can.nlp.inst0.z_lo.dtype))
+        n0, j0 = nodekern.node_blocks.launches, nodekern.defect_blocks.launches
+        nb, _, dj, _ = derivative_blocks(can)
+        got = nb(Z, dt, y.to(Z.dtype), can.nlp.inst0) + dj(Z, dt,
+                                                           can.nlp.inst0)
+        torch.cuda.synchronize()
+        assert (nodekern.node_blocks.launches,
+                nodekern.defect_blocks.launches) == (n0 + 1, j0 + 1)
+        for name, g, w in zip(("Hn", "A", "d", "A (jac)", "d (jac)"), got,
+                              want):
+            assert g.dtype == Z.dtype and g.shape == w.shape, name
+            rel = ((g.double() - w).abs().max() / w.abs().max()).item()
+            assert rel < tol, (name, Z.dtype, rel)
+    Z, dt, _ = c32.split(v)
+    par, fld = kernel_args(c32)(c32.nlp.inst0)
+    with pytest.raises(TypeError):
+        nodekern.defect_blocks(Z.double(), dt.double(), par, fld)
+    with pytest.raises(ValueError):
+        nodekern.defect_blocks(Z.cpu(), dt.cpu(), par.cpu(), fld)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chain", ["cr", "structured"])
+def test_cuda_float64_solve_takes_the_kernel(cuda_device, chain):
+    """float64 S10 at ts=8, wind model 1, scaled, 2 lanes on the card: up
+    to 40 steps of the endgame (refine=1, dual_refine_k=4) through the
+    condensed KKT on chain cr, or through the structured KKT, launch K9's
+    double entry points every step (node_blocks, and defect_blocks in the
+    refinement) and end where the same steps by the transforms end: the
+    same steps and flags, v and the duals to 1e-7 of their largest entry
+    (the blocks agree to a few ulps; 40 Newton steps and the refinement's
+    CG carry that to about 4e-9 in the duals)."""
+    import dataclasses
+
+    from tol_tpu_torch.api import make_problem
+    from tol_tpu_torch.ops import nodekern
+    from tol_tpu_torch.solver import alm
+    from tol_tpu_torch.solver.canonical import canonicalize
+    from tol_tpu_torch.solver.kkt_condensed import make_condensed_kkt
+    from tol_tpu_torch.solver.kkt_structured import make_structured_kkt
+
+    can = canonicalize(make_problem("S10", "tempest", ts=8, wind_model=1,
+                                    dtype=torch.float64, device=cuda_device),
+                       "auto")
+    transforms = dataclasses.replace(can, nlp=dataclasses.replace(
+        can.nlp, affine_wind_model=None))
+    lb, ub, fixed = can.bounds(can.nlp.inst0)
+    v0 = can.initial_point()[None] + torch.as_tensor(
+        0.01 * np.random.default_rng(3).standard_normal((2, can.n)),
+        dtype=torch.float64, device=cuda_device)
+    v0 = torch.where(fixed, lb, torch.minimum(torch.maximum(v0, lb), ub))
+    steps = 40
+    opts = alm.ALMOptions(max_iter=steps, dual_refine_k=4, max_ls=8,
+                          tol=1e-12, mu_init=6e-5, prox=2.5e-3)
+
+    def run(c):
+        kkt = (make_structured_kkt(c) if chain == "structured"
+               else make_condensed_kkt(c, refine=1, chain="cr"))
+        return alm.solve(c, kkt, opts, v0=v0, _loop="eager",
+                         keep_state=True).state
+
+    n0, j0 = nodekern.node_blocks.launches, nodekern.defect_blocks.launches
+    got = run(can)
+    ran = int(got.it.max())
+    assert ran > 0
+    assert nodekern.node_blocks.launches - n0 >= ran
+    assert nodekern.defect_blocks.launches - j0 >= ran
+    n0, j0 = nodekern.node_blocks.launches, nodekern.defect_blocks.launches
+    want = run(transforms)
+    assert (nodekern.node_blocks.launches,
+            nodekern.defect_blocks.launches) == (n0, j0)
+    assert torch.equal(got.it, want.it)
+    assert torch.equal(got.converged, want.converged)
+    for k in ("v", "yhat", "y_ls"):
+        g, w = getattr(got, k), getattr(want, k)
+        assert g.dtype == torch.float64
+        rel = (g - w).abs().max().item() / max(w.abs().max().item(), 1e-30)
+        assert rel < 1e-7, (k, rel)

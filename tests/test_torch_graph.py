@@ -31,7 +31,7 @@ from tol_tpu_torch import api as tapi
 from tol_tpu_torch.api import make_problem
 from tol_tpu_torch.io.storm import make_demo_storm_grid
 from tol_tpu_torch.models.wind import WindConfig
-from tol_tpu_torch.ops import chainkern, crkern
+from tol_tpu_torch.ops import chainkern, crkern, nodekern
 from tol_tpu_torch.problems.base import make_instance
 from tol_tpu_torch.solver import alm
 from tol_tpu_torch.solver.batch import make_grouped_solver
@@ -554,6 +554,7 @@ def test_captured_programs_match_eager_on_card(cuda_device):
     runs = {}
     for loop in ("eager", "program"):
         crkern.reset_launch_counts()
+        nodekern.reset_launch_counts()
         cache = alm.ProgramCache()
         kw = dict(keep_state=True, _loop=loop, _programs=cache)
         kkt_d = make_condensed_kkt(can, refine=0, chain="crp")

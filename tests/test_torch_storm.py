@@ -400,8 +400,8 @@ def storm_seeds(jc, n, seed=3):
 def test_storm_nlp_f_c_and_derivative_blocks_match():
     """The storm NLP at ts=12: scaling, f and c at three seeded points, and
     the blocks of the condensed KKT that the wind reaches (node Hessians of
-    the node Lagrangian, defect Jacobians) against the JAX package's
-    jax.hessian / jax.jacfwd of the same functions, as its
+    the node Lagrangian, defect Jacobians, at two lanes' nodes) against the
+    JAX package's jax.hessian / jax.jacfwd of the same functions, as its
     kkt_condensed.make_condensed_kkt takes them.  Tolerance TOL for f, c
     and the Jacobians; 1e-10 for the Hessians (a third derivative of the
     spline field)."""
@@ -416,29 +416,35 @@ def test_storm_nlp_f_c_and_derivative_blocks_match():
            jax.jit(jax.vmap(lambda v: jc.c(v, inst_j)))(jnp.asarray(V)))
 
     jn, tn = jc.nlp, tc.nlp
-    NV = 11
+    NV, T = 11, 12
     rng = np.random.default_rng(7)
-    Z, dt, _ = jc.split(jnp.asarray(V[0]))
-    U = np.concatenate([np.asarray(Z), np.full((Z.shape[0], 1), float(dt))], 1)
-    Y = rng.normal(scale=0.3, size=(Z.shape[0], 8))
+    lanes = [jc.split(jnp.asarray(v))[:2] for v in V[:2]]
+    Zn = np.stack([np.asarray(Z) for Z, _ in lanes])
+    dtn = np.array([float(dt) for _, dt in lanes])
+    U = np.concatenate([Zn, np.repeat(dtn[:, None, None], T + 1, 1)], 2)
+    # the solver's node blocks: multipliers on the T defects, none on node T
+    Y = rng.normal(scale=0.3, size=(2, T + 1, 8))
+    Y[:, T] = 0.0
 
     def node_lag(u, y):
         return (jn.node_cost(u[:NV], u[NV], inst_j)
                 + y @ jn.defect(u[:NV], jnp.zeros(NV), u[NV], inst_j))
 
-    Hj = jax.jit(jax.vmap(jax.hessian(node_lag)))(jnp.asarray(U),
-                                                  jnp.asarray(Y))
-    node_hess, _, defect_jac, _ = derivative_blocks(tn)
-    _close(node_hess(torch.tensor(U), torch.tensor(Y), inst_t), Hj, 1e-10)
-    Zn = np.asarray(Z)
+    Hj = jax.jit(jax.vmap(jax.hessian(node_lag)))(
+        jnp.asarray(U.reshape(-1, NV + 1)), jnp.asarray(Y.reshape(-1, 8)))
+    node_blocks, _, defect_jac, _ = derivative_blocks(tc)
+    Ht, At, dtt = node_blocks(torch.tensor(Zn), torch.tensor(dtn),
+                              torch.tensor(Y[:, :T]), inst_t)
+    _close(Ht.reshape(-1, NV + 1, NV + 1), Hj, 1e-10)
     Aj, dj = jax.jit(jax.vmap(jax.jacfwd(jn.defect, argnums=(0, 2)),
-                              in_axes=(0, 0, None, None)))(
-        jnp.asarray(Zn[:-1]), jnp.asarray(Zn[1:]), dt, inst_j)
-    At, dtt = defect_jac(torch.tensor(Zn[:-1]), torch.tensor(Zn[1:]),
-                         torch.full((Zn.shape[0] - 1,), float(dt),
-                                    dtype=torch.float64), inst_t)
-    _close(At, Aj)
-    _close(dtt, dj)
+                              in_axes=(0, 0, 0, None)))(
+        jnp.asarray(Zn[:, :-1].reshape(-1, NV)),
+        jnp.asarray(Zn[:, 1:].reshape(-1, NV)),
+        jnp.asarray(np.repeat(dtn, T)), inst_j)
+    for got in ((At, dtt), defect_jac(torch.tensor(Zn), torch.tensor(dtn),
+                                      inst_t)):
+        _close(got[0].reshape(-1, 8, NV), Aj)
+        _close(got[1].reshape(-1, 8), dj)
 
 
 def storm_params():

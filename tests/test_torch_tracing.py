@@ -4,7 +4,8 @@ Port only, float64 on the CPU, S10 at ts=8: the recorder off and on, the
 spans the solve path opens (their nesting, parents and request ids, and
 each region of a Newton step once per substep, the dual refinement's
 only where it runs), the replays and checks it records by program, the
-gridded wind's span and its counter of interpolated positions, the
+gridded wind's span and its counter of interpolated positions, the node
+blocks' counters of the nodes each path takes, the
 attribution of replay gaps and of device operations on synthetic records,
 and, on the card, that a capture made with the recorder on gives the
 graph and the bits of one made with it off, and that an endgame step's
@@ -191,7 +192,9 @@ def test_replays_checks_and_region_spans_on_a_cpu_solve(can):
     for r in REGIONS:
         assert rec.counts.get(r, 0) == (
             0 if r in ("step.dual_refine", "wind.grid") else steps), r
-    assert rec.counters == {}
+    # each step's derivative blocks take the 2 lanes' TS+1 nodes, on the
+    # CPU by the transforms
+    assert rec.counters == {"kkt.node_blocks.transforms": steps * 2 * (TS + 1)}
     assert rec.counts["alm.init"] == rec.counts["alm.load"] == 1
     assert rec.counts["alm.finish"] == 1
     # every region span's parent is the replay that ran it
@@ -358,6 +361,37 @@ def test_wind_grid_opens_inside_the_regions_of_an_eager_storm_step():
     assert rec.counters["wind.grid.queries"] >= 2 * TS * rec.counts["wind.grid"]
 
 
+def _endgame(can, steps, device="cpu", loop="program"):
+    """``steps`` endgame steps (refine=1, ``dual_refine_k`` = 4) of 2 lanes
+    of ``can`` -> the final state."""
+    p = _params(can.nlp.inst0.z_lo.dtype, device, max_iter=steps, tol=5e-3,
+                feas_tol=1e-4, mu_init=6e-5, prox=2.5e-3)
+    return alm.solve(can, make_condensed_kkt(can, refine=1),
+                     alm.ALMOptions(**END), v0=_seeds(can, 2, seed=2),
+                     params=p, _loop=loop, keep_state=True).state
+
+
+@pytest.mark.parametrize("model", [1, 3])
+def test_node_block_counters_count_each_steps_nodes(model):
+    """S10 at ts=8 on the CPU, 3 endgame steps of 2 lanes: each step's
+    ``kkt_prepare`` adds its B (T+1) nodes and its dual refinement B T to
+    ``kkt.node_blocks.transforms``, wind model 1 as model 3 (the CPU never
+    takes the kernel); the recorder on gives the bits of the recorder
+    off."""
+    wind = _storm_wind(interp="separable") if model == 3 else None
+    can = canonicalize(make_problem("S10", "tempest", ts=TS, wind_model=model,
+                                    wind=wind, device="cpu"), scaling="auto")
+    steps = 3
+    off = _endgame(can, steps)
+    with recording() as rec:
+        on = _endgame(can, steps)
+    for k in alm.ALMState._fields:
+        assert torch.equal(getattr(on, k), getattr(off, k)), k
+    assert {k: n for k, n in rec.counters.items()
+            if k.startswith("kkt.node_blocks")} == {
+        "kkt.node_blocks.transforms": steps * 2 * ((TS + 1) + TS)}
+
+
 # ---------------------------------------------------------------------------
 # attribution on synthetic records
 # ---------------------------------------------------------------------------
@@ -520,6 +554,36 @@ def test_capture_with_the_recorder_on_gives_the_same_graph(cuda_device):
                for r in REGIONS), regions
     assert regions["unattributed"]["ms"] < 0.05 * total
     assert regions["unlinked"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", [1, 3])
+def test_node_block_counters_name_the_path_on_the_card(cuda_device, model):
+    """float32 S10 at ts=8 on the card, 3 eager endgame steps of 2 lanes:
+    wind model 1 takes the kernel K9 for every node block (B (T+1) nodes a
+    ``kkt_prepare``, B T a dual refinement) and model 3 the transforms; the
+    recorder on gives the bits of the recorder off."""
+    from tol_tpu_torch.io.storm import make_demo_storm_grid
+
+    wind = None
+    if model == 3:
+        grid = make_demo_storm_grid(dtype=torch.float32, device=cuda_device)
+        wind = WindConfig(model=3, grid=grid,
+                          order=2, interp="separable", east0=17400.0,
+                          north0=25800.0, up0=200.0)
+    can = canonicalize(make_problem("S10", "tempest", ts=TS, wind_model=model,
+                                    wind=wind, dtype=torch.float32,
+                                    device=cuda_device), scaling="auto")
+    steps = 3
+    off = _endgame(can, steps, cuda_device, "eager")
+    with recording() as rec:
+        on = _endgame(can, steps, cuda_device, "eager")
+    for k in alm.ALMState._fields:
+        assert torch.equal(getattr(on, k), getattr(off, k)), k
+    path = "kernel" if model == 1 else "transforms"
+    assert {k: n for k, n in rec.counters.items()
+            if k.startswith("kkt.node_blocks")} == {
+        f"kkt.node_blocks.{path}": steps * 2 * ((TS + 1) + TS)}
 
 
 @pytest.mark.cuda

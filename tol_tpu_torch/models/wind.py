@@ -34,6 +34,9 @@ from torch.func import jvp
 
 from tol_tpu_torch.utils.profiling import count, span
 
+# the models whose field is affine in position, W(p) = W0 + G p
+AFFINE_MODELS = (0, 1)
+
 
 class WindGrid(NamedTuple):
     """Uniform ENU wind grid.
@@ -293,3 +296,18 @@ def wind_with_gradient_ned(cfg: WindConfig, p_ned: torch.Tensor):
     _, dW = jvp(lambda q: wind_ned(cfg, q), (P.contiguous(),),
                 (eye.expand_as(P).contiguous(),))
     return w, dW.transpose(-1, -2)
+
+
+@functools.lru_cache(maxsize=None)
+def affine_wind(cfg: WindConfig):
+    """``(W0, G)`` of a field affine in position (``cfg.model`` in
+    :data:`AFFINE_MODELS`): the NED wind at the local origin (3,) and its
+    constant gradient (3, 3), as float64 numpy, taken once per
+    configuration from :func:`wind_with_gradient_ned` itself."""
+    if int(cfg.model) not in AFFINE_MODELS:
+        raise ValueError(f"wind model {cfg.model} is not affine in position")
+    w, g = wind_with_gradient_ned(cfg, torch.zeros(1, 3, dtype=torch.float64))
+    out = w[0].numpy(), g[0].numpy()
+    for a in out:
+        a.setflags(write=False)     # shared by every caller of the cache
+    return out

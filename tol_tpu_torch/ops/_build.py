@@ -41,6 +41,12 @@ _SIGNATURES = {
         "chain_rhs_forward": [_P] * 6 + [_I, _I, _L, _I, _I, _P],
         "chain_back_sub": [_P] * 4 + [_I, _I, _L, _I, _I, _P],
     },
+    "nodekern": {
+        "node_blocks": [_P, _L] * 3 + [_P, _P, _L, _I, _I] + [_P] * 4,
+        "node_blocks_f64": [_P, _L] * 3 + [_P, _P, _L, _I, _I] + [_P] * 4,
+        "defect_blocks": [_P, _L] * 2 + [_P, _P, _L, _I] + [_P] * 3,
+        "defect_blocks_f64": [_P, _L] * 2 + [_P, _P, _L, _I] + [_P] * 3,
+    },
 }
 
 

@@ -8,7 +8,9 @@
 
 Every function works on the last axis (nodes ``(..., 11)``, ``dt`` of the
 leading shape), so one call covers a whole batch of lanes; the per-node
-derivatives in the solver come from ``torch.func`` over the same functions.
+derivatives in the solver come from ``torch.func`` over the same functions,
+or, under a wind affine in position on the card, from the closed form of
+``ops/nodekern.py`` (``solver/canonical.closed_form_blocks``).
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ import torch
 from tol_tpu_torch.config import (AircraftParams, Gains, Goal, Limits,
                                   MissionBoxes, ProblemConfig, StitchState)
 from tol_tpu_torch.models.dynamics import NUM_STATES, state_derivatives
-from tol_tpu_torch.models.wind import WindConfig, wind_with_gradient_ned
+from tol_tpu_torch.models.wind import (AFFINE_MODELS, WindConfig,
+                                       wind_with_gradient_ned)
 from tol_tpu_torch.problems import g7 as _g7
 from tol_tpu_torch.problems import s10 as _s10
 
@@ -114,6 +117,12 @@ class CollocationNLP:
     global_cost_fn: Callable
     defect_fn: Callable
     boundary_fn: Callable
+    # What the closed-form node blocks (ops/nodekern.py) read: the Hessian
+    # of node_cost in z, (..., 11) -> (..., 11, 11), and the wind model
+    # where the defect's field is affine in position and its Jacobians
+    # exact (else None).
+    node_cost_hess_fn: Callable
+    affine_wind_model: int | None = None
 
     def _inst(self, inst):
         return self.inst0 if inst is None else inst
@@ -126,6 +135,9 @@ class CollocationNLP:
 
     def global_cost(self, z0, zT, dt, inst=None):
         return self.global_cost_fn(z0, zT, dt, self._inst(inst))
+
+    def node_cost_hess(self, z, dt, inst=None):
+        return self.node_cost_hess_fn(z, dt, self._inst(inst))
 
     def defect(self, z_i, z_ip1, dt, inst=None):
         return self.defect_fn(z_i, z_ip1, dt, self._inst(inst))
@@ -202,6 +214,7 @@ def build_nlp(cfg: ProblemConfig, goal: Goal, wind: WindConfig,
 
     freeze_wind = cfg.jacobian_mode == "reference"
     wind_model = int(wind.model)
+    affine = wind_model in AFFINE_MODELS and not freeze_wind
 
     def defect(z_i, z_ip1, dt, inst):
         """Forward-Euler defect rows; ``dt`` has the nodes' leading shape.
@@ -226,6 +239,8 @@ def build_nlp(cfg: ProblemConfig, goal: Goal, wind: WindConfig,
         boundary_is_ineq=is_ineq, inst0=inst0, seed_fn=seed,
         node_cost_fn=node_cost, global_cost_fn=global_cost,
         defect_fn=defect, boundary_fn=boundary,
+        node_cost_hess_fn=mod.node_cost_hess,
+        affine_wind_model=wind_model if affine else None,
     )
 
 

@@ -11,6 +11,7 @@ JAX module derives):
     2-10 (eq):  z .. T periodic
     11 (<= 0):  dist - dmax                            dmax: node 0 to the goal
 with chi_d = atan2(yg, xg) the desired course from the leg origin.
+:func:`node_cost_hess` is the node cost's Hessian in closed form.
 """
 
 from __future__ import annotations
@@ -30,6 +31,14 @@ def _chi_d(inst):
 def _dist(z0, zT):
     return torch.sqrt((zT[..., 0] - z0[..., 0]) ** 2
                       + (zT[..., 1] - z0[..., 1]) ** 2)
+
+
+def node_cost_hess(z, dt, inst):
+    """The Hessian (..., 11, 11) of the node cost in z (it has no dt
+    term): kT on T."""
+    H = z.new_zeros(*z.shape, NUM_VARS)
+    H[..., IDX_T, IDX_T] = inst.gains.kT
+    return H
 
 
 def make(cfg: ProblemConfig, dtype, device):

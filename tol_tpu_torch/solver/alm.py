@@ -45,7 +45,7 @@ import numpy as np
 import torch
 from torch.func import grad
 
-from tol_tpu_torch.ops import chainkern, crkern
+from tol_tpu_torch.ops import chainkern, crkern, nodekern
 from tol_tpu_torch.solver.canonical import CanonicalNLP, constraint_jacobian
 from tol_tpu_torch.utils import profiling
 from tol_tpu_torch.utils.profiling import span
@@ -752,7 +752,8 @@ def _signature(tree):
     return tree
 
 
-_COUNTED = crkern.KERNELS + chainkern.KERNELS   # wrappers with ``.launches``
+# wrappers with ``.launches``
+_COUNTED = crkern.KERNELS + chainkern.KERNELS + nodekern.KERNELS
 
 
 def _launch_counts() -> dict:

@@ -6,7 +6,9 @@
 with ``v = [dt, Z.flat, s]`` (one slack per inequality boundary row).  ``f``
 and ``c`` act on the last axis: ``v`` (..., n) -> (...) and (..., m), so one
 call evaluates every lane of a batch.  :func:`constraint_jacobian` applies
-``dc/dv`` and its transpose from the collocation blocks.
+``dc/dv`` and its transpose from the collocation blocks, which
+:func:`constraint_jac_blocks` takes by the kernel K9 (``ops/nodekern.py``)
+where :func:`closed_form_blocks` holds, else by ``torch.func`` transforms.
 """
 
 from __future__ import annotations
@@ -19,7 +21,10 @@ import torch
 from torch.func import grad, jacfwd, jvp
 
 from tol_tpu_torch.models.dynamics import NUM_STATES, NUM_VARS
+from tol_tpu_torch.models.wind import affine_wind
+from tol_tpu_torch.ops import nodekern
 from tol_tpu_torch.problems.base import CollocationNLP, Instance
+from tol_tpu_torch.utils.profiling import count
 
 
 def jacfwd_lanes(f, x: torch.Tensor) -> torch.Tensor:
@@ -173,12 +178,17 @@ def _scale_nlp(nlp: CollocationNLP, sc: Scaling) -> CollocationNLP:
     r_d = sc.d_z[:NUM_STATES]
     r_b = sc.r_b
     s_f = sc.s_f if sc.s_f is not None else 1.0
+    dd = s_f * torch.outer(d_z, d_z)
 
     raw_node, raw_glob = nlp.node_cost_fn, nlp.global_cost_fn
+    raw_node_hess = nlp.node_cost_hess_fn
     raw_defect, raw_boundary, raw_seed = nlp.defect_fn, nlp.boundary_fn, nlp.seed_fn
 
     def node_cost(z, dt, inst):
         return s_f * raw_node(d_z * z, d_dt * dt, inst)
+
+    def node_cost_hess(z, dt, inst):
+        return dd * raw_node_hess(d_z * z, d_dt * dt, inst)
 
     def global_cost(z0, zT, dt, inst):
         return s_f * raw_glob(d_z * z0, d_z * zT, d_dt * dt, inst)
@@ -195,7 +205,8 @@ def _scale_nlp(nlp: CollocationNLP, sc: Scaling) -> CollocationNLP:
 
     return dataclasses.replace(
         nlp, node_cost_fn=node_cost, global_cost_fn=global_cost,
-        defect_fn=defect, boundary_fn=boundary, seed_fn=seed)
+        defect_fn=defect, boundary_fn=boundary, seed_fn=seed,
+        node_cost_hess_fn=node_cost_hess)
 
 
 def _slack_scatter(nlp: CollocationNLP) -> torch.Tensor:
@@ -274,19 +285,78 @@ def canonicalize(nlp: CollocationNLP,
                         bounds=bounds, scaling=scaling, nlp_phys=nlp_phys)
 
 
-def constraint_jac_blocks(nlp: CollocationNLP):
-    """The collocation constraint Jacobian's blocks, all lanes (and nodes)
-    at once, each by one forward-mode pass over a replica axis
-    (:func:`jacfwd_lanes`).  Returns (defect_jac, bnd_jac)."""
+def closed_form_blocks(nlp: CollocationNLP) -> bool:
+    """Whether the collocation node blocks of ``nlp`` go through the kernel
+    K9 (``ops/nodekern.py``) and not the ``torch.func`` transforms: its
+    wind is affine in position and its Jacobians exact
+    (``affine_wind_model``), and its tensors live on CUDA.  A solver decides
+    once, when it is built."""
+    return (nlp.affine_wind_model is not None
+            and nlp.inst0.z_lo.device.type == "cuda")
+
+
+def kernel_args(can: CanonicalNLP):
+    """``args(inst) -> (par, field)``, what a K9 launch on ``can.nlp`` reads
+    beside the nodes: the airframe and the variable scales (``can.scaling``,
+    all 1 unscaled) on the device, the air, gravity and the affine wind
+    (``models/wind.affine_wind``) on the host."""
+    sc = can.scaling if can.scaling is not None else unit_scaling(can.nlp)
+    d_z, d_dt = sc.d_z, sc.d_dt
+    model = can.nlp.affine_wind_model
+
+    def args(inst):
+        W0, G = affine_wind(dataclasses.replace(inst.wind, model=model))
+        return (nodekern.params(inst.aircraft, d_z, d_dt),
+                nodekern.field(W0, G))
+    return args
+
+
+def defect_jac_transforms(nlp: CollocationNLP):
+    """``defect_jac(z_i, z_ip1, dt, inst)``: (N, 11), (N, 11), (N,) ->
+    dDefect/dz_i (N, 8, 11), dDefect/ddt (N, 8), by one forward-mode pass
+    over a replica axis (:func:`jacfwd_lanes`)."""
     def defect_jac(z_i, z_ip1, dt, inst):
-        """(N, 11), (N, 11), (N,) -> dDefect/dz_i (N, 8, 11), dDefect/ddt (N, 8)."""
         J = jacfwd_lanes(lambda u: nlp.defect(u[..., :NUM_VARS], z_ip1,
                                               u[..., NUM_VARS], inst),
                          torch.cat([z_i, dt[:, None]], dim=1))
         return J[..., :NUM_VARS], J[..., NUM_VARS]
+    return defect_jac
+
+
+def constraint_jac_blocks(can: CanonicalNLP):
+    """The collocation constraint Jacobian's blocks of ``can.nlp``, all
+    lanes (and nodes) at once.  Returns (defect_jac, bnd_jac):
+
+    ``defect_jac(Z, dt, inst)``: Z (B, T+1, 11), dt (B,) -> the defects'
+    blocks dDefect_i/dz_i (B, T, 8, 11) and dDefect_i/ddt (B, T, 8), by K9
+    where :func:`closed_form_blocks` holds, else by
+    :func:`defect_jac_transforms`; the recorder's counter
+    ``kkt.node_blocks.kernel`` or ``kkt.node_blocks.transforms`` adds the
+    B * T nodes.
+
+    ``bnd_jac(z0, zT, dt, inst)``: (B, 11), (B, 11), (B,) -> the boundary
+    Jacobian blocks G0, GT, Gdt, by one forward-mode pass."""
+    nlp = can.nlp
+    T = nlp.T
+    if closed_form_blocks(nlp):
+        args = kernel_args(can)
+
+        def defect_jac(Z, dt, inst):
+            count("kkt.node_blocks.kernel", Z.shape[0] * T)
+            return nodekern.defect_blocks(Z, dt, *args(inst))
+    else:
+        flat = defect_jac_transforms(nlp)
+
+        def defect_jac(Z, dt, inst):
+            B = Z.shape[0]
+            count("kkt.node_blocks.transforms", B * T)
+            A, d = flat(Z[:, :-1].reshape(-1, NUM_VARS),
+                        Z[:, 1:].reshape(-1, NUM_VARS),
+                        dt[:, None].expand(B, T).reshape(-1), inst)
+            return A.reshape(B, T, NUM_STATES, NUM_VARS), d.reshape(
+                B, T, NUM_STATES)
 
     def bnd_jac(z0, zT, dt, inst):
-        """(B, 11), (B, 11), (B,) -> boundary Jacobian blocks G0, GT, Gdt."""
         J = jacfwd_lanes(lambda u: nlp.boundary(u[..., :NUM_VARS],
                                                 u[..., NUM_VARS:2 * NUM_VARS],
                                                 u[..., 2 * NUM_VARS], inst),
@@ -311,16 +381,13 @@ def constraint_jacobian(can: CanonicalNLP):
     nlp = can.nlp
     T, NS, NV = nlp.T, NUM_STATES, NUM_VARS
     nz = 1 + (T + 1) * NV
-    defect_jac, bnd_jac = constraint_jac_blocks(nlp)
+    defect_jac, bnd_jac = constraint_jac_blocks(can)
     Gs_dev = _slack_scatter(nlp)
 
     def at(v, inst):
         B = v.shape[0]
         Z, dt, _ = can.split(v)
-        A, d = defect_jac(Z[:, :-1].reshape(-1, NV), Z[:, 1:].reshape(-1, NV),
-                          dt[:, None].expand(B, T).reshape(-1), inst)
-        A = A.reshape(B, T, NS, NV)
-        d = d.reshape(B, T, NS)
+        A, d = defect_jac(Z, dt, inst)
         G0, GT, Gdt = bnd_jac(Z[:, 0], Z[:, -1], dt, inst)
         Gs = Gs_dev.to(dtype=v.dtype, device=v.device)
         # the boundary rows against [dt, z_0, z_T, s]

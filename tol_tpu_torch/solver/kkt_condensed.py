@@ -34,6 +34,7 @@ import torch
 from torch.func import grad
 
 from tol_tpu_torch.models.dynamics import NUM_STATES, NUM_VARS
+from tol_tpu_torch.ops import nodekern
 from tol_tpu_torch.ops.blocktri import cr_factor, cr_solve
 from tol_tpu_torch.ops.chainkern import (chain_back_sub, chain_eliminate,
                                          chain_rhs_forward)
@@ -42,9 +43,11 @@ from tol_tpu_torch.ops.smallalg import (bmm_tn, bmv, bmv_t, cho_solve_outer,
                                         chol_outer, chol_unrolled,
                                         tri_solve_unrolled)
 from tol_tpu_torch.ops.spike import spike_factor, spike_solve
-from tol_tpu_torch.solver.canonical import (CanonicalNLP, constraint_jac_blocks,
-                                            jacfwd_lanes)
-from tol_tpu_torch.utils.profiling import span
+from tol_tpu_torch.solver.canonical import (CanonicalNLP, closed_form_blocks,
+                                            constraint_jac_blocks,
+                                            defect_jac_transforms, jacfwd_lanes,
+                                            kernel_args)
+from tol_tpu_torch.utils.profiling import count, span
 
 NS, NV = NUM_STATES, NUM_VARS
 
@@ -52,23 +55,64 @@ NS, NV = NUM_STATES, NUM_VARS
 CHAINS = ("crp", "pallas", "scan", "cr", "spike")
 
 
-def derivative_blocks(nlp):
+def derivative_blocks(can: CanonicalNLP):
     """The per-node and border derivative blocks of the collocation KKT
-    system, all lanes (and nodes) at once: gradients by reverse mode over
-    the lane sum, Jacobians/Hessians by one forward-mode pass over a replica
-    axis (canonical.jacfwd_lanes; the Jacobian blocks are
-    canonical.constraint_jac_blocks).  Returns (node_hess, border_hess,
-    defect_jac, bnd_jac)."""
-    def node_hess(u, y, inst):
-        """(N, 12) node points [z, dt], (N, 8) defect multipliers ->
-        (N, 12, 12) Hessians of node_cost + y . defect(z, 0, dt)."""
-        def lag_grad(uu):
-            def lag(w):
-                z, dt = w[..., :NV], w[..., NV]
-                return (nlp.node_cost(z, dt, inst) + (y * nlp.defect(
-                    z, torch.zeros_like(z), dt, inst)).sum(-1)).sum()
-            return grad(lag)(uu)
-        return jacfwd_lanes(lag_grad, u)
+    system of ``can.nlp``, all lanes (and nodes) at once.  Returns
+    (node_blocks, border_hess, defect_jac, bnd_jac); the last two are
+    canonical.constraint_jac_blocks'.
+
+    ``node_blocks(Z, dt, y, inst)``: Z (B, T+1, 11), dt (B,), y (B, T, 8)
+    defect multipliers -> Hn (B, T+1, 12, 12), the Hessians over [z, dt] of
+    node_cost + y . defect(z, 0, dt) (node T has no defect), and the
+    defects' Jacobian blocks A (B, T, 8, 11), d (B, T, 8).  Where
+    canonical.closed_form_blocks holds, one launch of the kernel K9 gives
+    all three and the node cost's closed-form Hessian is added; else
+    gradients by reverse mode over the lane sum and Jacobians/Hessians by
+    one forward-mode pass over a replica axis (canonical.jacfwd_lanes).  The
+    recorder's counter ``kkt.node_blocks.kernel`` or
+    ``kkt.node_blocks.transforms`` adds the B * (T+1) nodes.
+
+    ``border_hess(u, w, inst)``: (B, 23) [z0, zT, dt], (B, nb) ->
+    (B, 23, 23), by the transforms."""
+    nlp = can.nlp
+    T = nlp.T
+    defect_jac, bnd_jac = constraint_jac_blocks(can)
+
+    if closed_form_blocks(nlp):
+        args = kernel_args(can)
+
+        def node_blocks(Z, dt, y, inst):
+            count("kkt.node_blocks.kernel", Z.shape[0] * (T + 1))
+            Hn, A, d = nodekern.node_blocks(Z, dt, y, *args(inst))
+            Hn[..., :NV, :NV] += nlp.node_cost_hess(Z, dt[:, None], inst)
+            return Hn, A[:, :T], d[:, :T]
+    else:
+        defect_flat = defect_jac_transforms(nlp)
+
+        def node_hess(u, y, inst):
+            """(N, 12) node points [z, dt], (N, 8) defect multipliers ->
+            (N, 12, 12) Hessians of node_cost + y . defect(z, 0, dt)."""
+            def lag_grad(uu):
+                def lag(w):
+                    z, dt = w[..., :NV], w[..., NV]
+                    return (nlp.node_cost(z, dt, inst) + (y * nlp.defect(
+                        z, torch.zeros_like(z), dt, inst)).sum(-1)).sum()
+                return grad(lag)(uu)
+            return jacfwd_lanes(lag_grad, u)
+
+        def node_blocks(Z, dt, y, inst):
+            B = Z.shape[0]
+            count("kkt.node_blocks.transforms", B * (T + 1))
+            u_nodes = torch.cat([Z, dt[:, None, None].expand(B, T + 1, 1)],
+                                dim=2)
+            y_pad = torch.cat([y, torch.zeros(B, 1, NS, dtype=Z.dtype,
+                                              device=Z.device)], dim=1)
+            Hn = node_hess(u_nodes.reshape(-1, NV + 1), y_pad.reshape(-1, NS),
+                           inst).reshape(B, T + 1, NV + 1, NV + 1)
+            A, d = defect_flat(Z[:, :-1].reshape(-1, NV),
+                               Z[:, 1:].reshape(-1, NV),
+                               dt[:, None].expand(B, T).reshape(-1), inst)
+            return Hn, A.reshape(B, T, NS, NV), d.reshape(B, T, NS)
 
     def border_hess(u, w, inst):
         """(B, 23) [z0, zT, dt], (B, nb) -> (B, 23, 23)."""
@@ -80,8 +124,7 @@ def derivative_blocks(nlp):
             return grad(lag)(uu)
         return jacfwd_lanes(lag_grad, u)
 
-    defect_jac, bnd_jac = constraint_jac_blocks(nlp)
-    return node_hess, border_hess, defect_jac, bnd_jac
+    return node_blocks, border_hess, defect_jac, bnd_jac
 
 
 def make_condensed_kkt(can: CanonicalNLP, refine: int = 2, chain: str = "crp"):
@@ -104,7 +147,7 @@ def make_condensed_kkt(can: CanonicalNLP, refine: int = 2, chain: str = "crp"):
     z_lo0 = nlp.inst0.z_lo
     Gs_dev = torch.as_tensor(Gs_np, dtype=z_lo0.dtype, device=z_lo0.device)
 
-    node_hess, border_hess, defect_jac, bnd_jac = derivative_blocks(nlp)
+    node_blocks, border_hess, _, bnd_jac = derivative_blocks(can)
 
     def kkt_prepare(v, y_all, sigma, delta_w, delta_c, inst=None):
         """Assemble + factorize at the current iterates ``v`` (B, n);
@@ -139,20 +182,11 @@ def make_condensed_kkt(can: CanonicalNLP, refine: int = 2, chain: str = "crp"):
             sig_s = sigma[:, 1 + (T + 1) * NV:]
 
             # ---- Lagrangian/Jacobian blocks ----
-            u_nodes = torch.cat([Z, dt[:, None, None].expand(B, T + 1, 1)], dim=2)
-            y_pad = torch.cat([y, torch.zeros(B, 1, NS, dtype=dtype, device=dev)],
-                              dim=1)
-            Hn = node_hess(u_nodes.reshape(-1, NV + 1), y_pad.reshape(-1, NS),
-                           inst).reshape(B, T + 1, NV + 1, NV + 1)
+            Hn, A, d = node_blocks(Z, dt, y, inst)
             Q = (Hn[..., :NV, :NV] + torch.diag_embed(sig_z)
                  + dw[:, None, None, None] * eye)
             qdt = Hn[..., :NV, NV]
             sig_nodes = Hn[..., NV, NV]
-
-            A, d = defect_jac(Z[:, :-1].reshape(-1, NV), Z[:, 1:].reshape(-1, NV),
-                              dt[:, None].expand(B, T).reshape(-1), inst)
-            A = A.reshape(B, T, NS, NV)
-            d = d.reshape(B, T, NS)
 
             ub_pt = torch.cat([Z[:, 0], Z[:, -1], dt[:, None]], dim=1)
             Hb = border_hess(ub_pt, w, inst)

@@ -143,7 +143,7 @@ def make_structured_kkt(can: CanonicalNLP, convexify: bool = True):
     z_lo0 = nlp.inst0.z_lo
     Gs = torch.as_tensor(Gs_np, dtype=z_lo0.dtype, device=z_lo0.device)
 
-    node_hess, border_hess, defect_jac, bnd_jac = derivative_blocks(nlp)
+    node_blocks, border_hess, _, bnd_jac = derivative_blocks(can)
 
     def kkt_solve(v, y_all, sigma, delta_w, delta_c, rhs_v, rhs_c, inst=None):
         """``delta_w`` scalar or (B,); ``delta_c`` scalar, (B,) or (B, m)."""
@@ -177,21 +177,13 @@ def make_structured_kkt(can: CanonicalNLP, convexify: bool = True):
         r_b = rhs_c[:, NS * T:]
 
         # ---- derivative blocks ----
-        u_nodes = torch.cat([Z, dt[:, None, None].expand(B, T + 1, 1)], dim=2)
-        y_pad = torch.cat([y, zeros(1, NS)], dim=1)
-        Hn = node_hess(u_nodes.reshape(-1, NV + 1), y_pad.reshape(-1, NS),
-                       inst).reshape(B, T + 1, NV + 1, NV + 1)
+        Hn, A, d = node_blocks(Z, dt, y, inst)
         Q = Hn[..., :NV, :NV]
         if convexify:
             Q = convexify_blocks(0.5 * (Q + Q.transpose(-1, -2)))
         Q = Q + torch.diag_embed(sig_z) + dw[:, None, None, None] * eye
         qdt = Hn[..., :NV, NV]                      # (B, T+1, 11)
         sig_nodes = Hn[..., NV, NV]                 # (B, T+1)
-
-        A, d = defect_jac(Z[:, :-1].reshape(-1, NV), Z[:, 1:].reshape(-1, NV),
-                          dt[:, None].expand(B, T).reshape(-1), inst)
-        A = A.reshape(B, T, NS, NV)
-        d = d.reshape(B, T, NS)
 
         Hb = border_hess(torch.cat([Z[:, 0], Z[:, -1], dt[:, None]], dim=1),
                          w, inst)                   # (B, 23, 23)

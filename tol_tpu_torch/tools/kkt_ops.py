@@ -11,7 +11,16 @@ condensed KKT with refine=1 on every chain.  The crp and pallas chains
 run their CPU twins here, which the card replaces by three launches, so
 only the other counts carry over.  ``dual_refine``: one least-squares dual
 refinement of the endgame (``dual_refine_k`` = 4, the Jacobian's blocks and
-the CG over them) at the same point.  Prints one JSON line.
+the CG over them) at the same point.
+
+The node blocks run by the ``torch.func`` transforms here; on the card,
+under wind models 0 and 1, one launch of the kernel K9 takes their place
+(``ops/nodekern.py``).  ``node_blocks`` counts the transforms' operations
+inside every KKT count above (``kkt_prepare``'s node Hessians and defect
+Jacobians), ``defect_jac`` those inside ``dual_refine``; beside each launch
+the card runs ``kernel_params`` operations, and beside the one in
+``kkt_prepare`` also ``node_cost_hess`` and one sum.  Prints one JSON
+line.
 """
 
 from __future__ import annotations
@@ -87,7 +96,27 @@ def count(ts: int = 100, lanes: int = 2) -> dict:
     out = {name: count_ops(kkt, *args) for name, kkt in kkts.items()}
     kern, rargs = refine_point(can, lanes)
     out["dual_refine"] = count_ops(kern.dual_refine, *rargs)
+    out.update(node_block_ops(can, v))
     return out
+
+
+def node_block_ops(can, v) -> dict:
+    """The aten operations of the node blocks at the lanes ``v`` by the
+    transforms, and of what the card's kernel path runs beside its launch:
+    the node cost's closed-form Hessian and the kernel's parameters."""
+    from tol_tpu_torch.solver.canonical import constraint_jac_blocks, kernel_args
+    from tol_tpu_torch.solver.kkt_condensed import derivative_blocks
+
+    nlp, inst = can.nlp, can.nlp.inst0
+    Z, dt, _ = can.split(v)
+    y = torch.zeros(v.shape[0], nlp.T, 8, dtype=v.dtype)
+    args = kernel_args(can)
+    args(inst)          # the affine wind's constants: once per configuration
+    return dict(
+        node_blocks=count_ops(derivative_blocks(can)[0], Z, dt, y, inst),
+        defect_jac=count_ops(constraint_jac_blocks(can)[0], Z, dt, inst),
+        node_cost_hess=count_ops(nlp.node_cost_hess, Z, dt[:, None], inst),
+        kernel_params=count_ops(args, inst))
 
 
 def main() -> None:

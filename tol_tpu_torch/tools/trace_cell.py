@@ -23,7 +23,13 @@ recorder's pieces on this host.  The last ``on`` window gives:
   gridded wind's interpolation (wind model 3), wherever it runs;
 - ``wind.grid_queries_per_step`` (batch cells): the positions the gridded
   wind interpolated in those eager steps (the recorder's counter
-  ``wind.grid.queries``), weighted the same way.
+  ``wind.grid.queries``), weighted the same way;
+- ``kkt.node_blocks.kernel_nodes_per_step`` and
+  ``kkt.node_blocks.transforms_nodes_per_step`` (batch cells): the nodes
+  whose derivative blocks those steps took by the kernel K9 and by the
+  ``torch.func`` transforms (the recorder's counters
+  ``kkt.node_blocks.kernel`` and ``.transforms``), weighted the same way:
+  which path the cell takes.
 
 Prints one JSON line; with ``--out`` also writes it to
 ``DIR/trace_<workload>_<seed>.json``.  Reads the benchmark's code and
@@ -76,9 +82,13 @@ def metrics(kind, reqs, sm, regions):
                   "step.dual_refine", "wind.grid"):
             out[r + "_ms_per_step"] = sum(
                 n * regions[k][r]["ms"] for k, n in mix.items() if n) / tot
-        out["wind.grid_queries_per_step"] = sum(
-            n * regions[k].get("wind.grid.queries", 0)
-            for k, n in mix.items() if n) / tot
+        for key, c in (("wind.grid_queries_per_step", "wind.grid.queries"),
+                       ("kkt.node_blocks.kernel_nodes_per_step",
+                        "kkt.node_blocks.kernel"),
+                       ("kkt.node_blocks.transforms_nodes_per_step",
+                        "kkt.node_blocks.transforms")):
+            out[key] = sum(n * regions[k].get(c, 0)
+                           for k, n in mix.items() if n) / tot
     return out
 
 
