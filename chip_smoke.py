@@ -1,21 +1,27 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port (``tol_tpu_torch``) on one NVIDIA GPU.
+"""Pass/fail correctness run of the PyTorch/CUDA port (``tol_tpu_torch``)
+on one NVIDIA GPU.
 
     python3 chip_smoke.py
+
+It takes one kind of time only: the device time of each kernel whose
+roofline no benchmark metric reads (K5-K9), beside the least bytes and
+operations it must move and do.  The port's speed is the benchmark's
+(``python3 benchmark/run.py``, ``BENCHMARK.json``; K1-K3's roofline is its
+``kernels.crp_roofline``), a cell's step by region and the host's gaps are
+``python3 -m tol_tpu_torch.tools.trace_cell``'s, and each change's device
+time by kernel is the ``breakdown`` of its lines in ``PERF_LEDGER.jsonl``.
 
 Phases, each of which must pass (any failure exits non-zero and prints no
 ``ok`` line):
 
 1. build   — compile every kernel source under ``tol_tpu_torch/csrc`` with
-             nvcc, one compiler per source, all at once, beside
-             ``tol_tpu_torch/tools/chain_clock.cu`` (timed as set-up).
-   clock   — ``chain_clock``: clock64 traces of a chain step of K6-K8
-             (the second slice's kernels and the shipped ones), the latency
-             of a square root, quotient and FMA, and K6's fast-path square
-             root and quotient against the library's on 2^26 operands each
-             (any differing bits fail the phase).
-2. kernels — hold each of the seven kernels against its plain PyTorch twin
-             on the card at the solves' shapes: the cyclic-reduction
+             nvcc, one compiler per source, all at once; each kernel's
+             ptxas registers and spills.
+2. kernels — K6's fast-path square root and quotient (``crk::FastOps``)
+             against the IEEE routines on 2^26 operands each: no bit may
+             differ.  Then each kernel against its plain PyTorch twin on
+             the card at the solves' shapes: the cyclic-reduction
              kernels K1-K3, K5 at 11x11 blocks, B=128 lanes, T=100 blocks
              padded to 128 (CR levels h = 64..1), rhs widths m = 12, 14
              and 1 (each takes the level-0 operands and runs the 7 levels
@@ -26,15 +32,13 @@ Phases, each of which must pass (any failure exits non-zero and prints no
              at ts=100, float32, against the float64 torch.func transforms
              (``TOL_NODE``).  Each case includes a lane with an indefinite
              pivot (for K9, a NaN node) that must come out NaN in that lane
-             only.  Kernel, twin and a library yardstick are timed with
-             CUDA events, each kernel also by its own device time under
-             torch.profiler, both warm (the operands in the 50 MB L2 from
-             the run before) and cold (a 128 MiB write between runs), and
-             each kernel's bound is reckoned; for K6-K8 also the floor that
-             the T dependent steps set.  Beside K7, the device time of the
-             batch-last copies of O and r that its public wrapper makes.
+             only.  K5-K9 (``ROOFLINE_KERNELS``) are then timed: one
+             launch at the first shape, 20 warm runs under torch.profiler,
+             the kernel's own device time against its bound (the least
+             bytes at the HBM3 bandwidth or its operations at the fp32
+             peak, whichever is longer).
    sweep   — K6-K8 at every lane group size and thread count of SWEEP:
-             device time; every shape must give the shipped shape's bits.
+             every shape must give the shipped shape's bits.
 3. chains  — the same 128 chains of T=100 blocks solved by
              ``crp_factor`` + ``crp_solve``, by ``crp_factor_solve``, by
              ``chain_eliminate`` + ``chain_rhs_forward`` +
@@ -83,17 +87,17 @@ Phases, each of which must pass (any failure exits non-zero and prints no
              ``global_psum`` and ``global_stats_to_host`` over NCCL must
              equal the local sum and the local tensor.
    scaling — ``bench_scaling_torch``'s GPU batch curve at 128, 256 and 512
-             lanes, 8 fixed iterations each: instance-iterations per
-             second per batch.
+             lanes, 8 fixed iterations each: every rate finite and
+             positive, every batch run its 8 iterations, K1-K3 launched.
    entry   — ``graft_entry_torch.entry()`` on the card (the ts=100 S10 KKT
              step over 8 lanes, chain cr) must give finite f, max|c| and v;
              ``dryrun_multichip(1)``: three solver iterations over the mesh.
    utils   — the s10 phase's final v and the parallel phase's v and y
              round-trip ``save_solution`` / ``load_solution`` bit for bit;
-             the stage timer's report of the solve phases; one crp dive
-             step of 128 lanes under ``utils.profiling.trace``, whose
-             Chrome trace must name the K1-K3 kernels; that step's
-             ``program_flops``, the card's ``peak_flops()`` and the share.
+             one crp dive step of 128 lanes under ``utils.profiling.trace``,
+             whose Chrome trace must name the K1-K3 kernels; that step's
+             ``program_flops`` and the card's ``peak_flops()`` must be
+             positive.
    graph   — the solver loop as captured programs (``solver/alm.py``'s
              ``_StepProgram``: one masked step, captured once as a CUDA
              graph and replayed).  s10's and the storm's first 128-lane
@@ -102,17 +106,15 @@ Phases, each of which must pass (any failure exits non-zero and prints no
              dive, at the depth ``GRAPH_DEPTH`` (dive 8, group cap 16,
              budget 24), each eagerly (``_loop="eager"``) and captured: per
              ALMState field after each stage, equal bits or the largest
-             difference; the launches of both runs; ms per step of both;
-             per program its replay against the same unit run eagerly,
-             the device busy time and idle share of a replay under
-             torch.profiler, its kernel nodes and the hand-written
-             kernels among them (K1-K3; K6-K8 in the sequential dive:
-             each must appear), capture seconds and peak memory.  Then
-             bench config 1 at full size captured (``bench_torch``'s
-             solver, draws and gate in this process: 1024 lanes, groups
-             and drain chunks of 128), gated at 1008/1024.  Every solve
-             phase above runs captured as well: on the card ``alm.solve``
-             replays its step programs unless told otherwise.
+             difference; the launches of both runs; per program the hand
+             kernels its capture recorded (``_StepProgram.launches``: K1-K3,
+             K6-K8 in the sequential dive, K9 on s10: each must appear), and
+             peak memory.  Then bench config 1 at full size captured
+             (``bench_torch``'s solver, draws and gate in this process:
+             1024 lanes, groups and drain chunks of 128), gated at
+             1008/1024.  Every solve phase above runs captured as well: on
+             the card ``alm.solve`` replays its step programs unless told
+             otherwise.
    paths   — the JAX package's other solve paths, as captured programs.
              Ten programs (the structured and the dense KKT, the condensed
              KKT's plain chains scan, cr and spike, wind models 2, 4 and 5,
@@ -133,17 +135,12 @@ Phases, each of which must pass (any failure exits non-zero and prints no
              six records bit-equal.  ``Mission(MissionConfig()).run`` on
              ``MISSION_GOAL``: the legs' types and converged flags of the
              JAX package's own float32 run (``tests/golden_mission_
-             ts100.json``), one capture per mission type.  The
-             structured KKT's Jacobi alone, captured at a ts=100 step's
-             shape: replay ms, device busy time, kernel nodes.
-5. profile — one dive (crp and sequential) and one endgame iteration of 128
-             lanes under torch.profiler, and one storm endgame iteration:
-             host wall, device busy time and idle share, the hand-written
-             kernels' share, kernel launches; beside each, the same step
-             as a captured program's replay (``replayed``).
+             ts100.json``), one capture per mission type.
 
-The last lines are the card's name and power limit, the ``kernels`` JSON
-and finally
+Every hand kernel must have been launched by some phase.  The last lines
+are the card's name and power limit, the ``kernels`` JSON (each kernel's
+errors against its twin, tolerance and launches by path; for K5-K9 also
+``device_ms``, ``bound_ms``, ``bound_by`` and ``bound_share``) and finally
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -154,19 +151,10 @@ import os
 import re
 import subprocess
 import sys
-import time
 
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-
-# NVIDIA H100 SXM data sheet: HBM3 bandwidth and fp32 (non-tensor) peak.
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
-# Latency from one dependent fp32 operation to the next on a Hopper SM,
-# taken as 4 cycles for every operation (divisions and square roots take
-# longer, so the chain floor below is a floor).
-DEP_OP_CYCLES = 4
 
 NB = 11                 # node block size
 NS_DEFECT = 8           # defect rows of a node (the dynamic states)
@@ -180,7 +168,7 @@ PAR_LANES = 32          # iteration budget (dive structure, endgame numerics)
 PAR_ITERS = 60
 SCALING_BATCHES = (128, 256, 512)   # the scaling phase's batch curve
 SCALING_ITERS = 8
-UTILS_STEPS = 5         # the utils phase's untraced window of dive steps
+UTILS_WARM_STEPS = 2    # dive substeps from the seeds before the traced one
 # The bench phase: bench_torch.py's configs 1 and 3 cut to check the path,
 # not the gate: variable -> (bench.py's default, the cut)
 BENCH_CUTS = dict(BENCH_BATCH=("1024", "128"), BENCH_GROUP=("128", "32"),
@@ -191,6 +179,14 @@ BENCH_CUTS = dict(BENCH_BATCH=("1024", "128"), BENCH_GROUP=("128", "32"),
 LEVELS = [64, 32, 16, 8, 4, 2, 1]   # CR level widths h for T=100 -> 128
 TOL_REL = 1e-4          # kernel vs twin, relative max-norm, float32
 TOL_CHAINS = 1e-3       # chain solves vs the dense yardstick, relative
+# Operands of each kind on which K6's fast-path square root and quotient
+# must give the IEEE routines' bits
+FAST_OPS_OPERANDS = 1 << 26
+# NVIDIA H100 SXM data sheet: HBM3 bandwidth and fp32 (non-tensor) peak,
+# the bounds of the kernels whose roofline no benchmark metric reads
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+ROOFLINE_REPS = 20      # profiled runs of each such kernel, after one warm-up
 
 CR_SOURCE = "tol_tpu_torch/csrc/crkern.cu"
 CHAIN_SOURCE = "tol_tpu_torch/csrc/chainkern.cu"
@@ -217,7 +213,7 @@ KERNELS = {
 # the crp kernels of a solve path, and those of crp_factor alone
 CR_PASS_KERNELS = ("crp_factor_fwd_pass", "crp_fwd_pass", "crp_bwd_pass")
 CR_FACTOR_ONLY = ("crp_factor_pass",)
-# kernel -> its __global__ function, as ptxas and the profiler name it
+# kernel -> its __global__ function, as ptxas names it
 SYMBOLS = {"crp_factor_fwd_pass": "factor_fwd_pass_kernel",
            "crp_fwd_pass": "fwd_pass_kernel",
            "crp_bwd_pass": "bwd_pass_kernel",
@@ -238,23 +234,10 @@ TOL_NODE = 1e-5
 # number type on the host; constants included, so an upper count): with the
 # Hessian, and A and d alone
 NODE_FLOPS = {"node_blocks": 6398, "defect_blocks": 1621}
-# Dependent fp32 operations on the critical path of one chain block:
-# K6: Cholesky column j waits for j products, a square root and a
-# division (sum over 11 columns: 77); one column of the inverse is a
-# forward and a backward substitution of 11 rows, row i waiting for i
-# products, a subtraction and a division (77 each); then an 11-term product
-# with the inverse and an 11-term product with O^T for the next carry.
-# K7: r - rcorr, Dinv r~, O^T tr.  K8: t2 x_{i+1}, one subtraction.
-CHAIN_DEPTH = {"chain_factor": 77 + 77 + 77 + 11 + 11,
-               "chain_rhs_forward": 1 + 11 + 11,
-               "chain_back_sub": 11 + 1}
-# The same operations by kind (K6: 11 square roots, 33 quotients — 11 in
-# the Cholesky, 22 in an inverse column — and 209 products, FMAs or
-# subtractions), for the floor restated with the latencies the clock phase
-# measures on the card (``chain_floor_ms_measured_latency``).
-CHAIN_OPS = {"chain_factor": dict(sqrt=11, quotient=33, ffma=209),
-             "chain_rhs_forward": dict(ffma=23),
-             "chain_back_sub": dict(ffma=12)}
+# The kernels timed against their bounds: K5, K6-K8 and K9, which run on
+# no benchmarked path (K5-K8) or whose bound no benchmark metric reads (K9).
+# K1-K3's roofline is the benchmark's kernels.crp_roofline.
+ROOFLINE_KERNELS = ("crp_factor_pass",) + CHAIN_KERNELS + NODE_KERNELS
 # Launch shapes of the sweep: (lanes per thread block, threads per block).
 SWEEP = {"chain_factor": [(G, th) for G in (1, 2, 4, 8)
                           for th in (64, 128, 256) if th > 16 * G],
@@ -262,7 +245,6 @@ SWEEP = {"chain_factor": [(G, th) for G in (1, 2, 4, 8)
                                for th in (128, 256, 512) if th > 16 * G],
          "chain_back_sub": [(G, th) for G in (1, 2, 4)
                             for th in (64, 128, 256)]}
-L2_FLUSH_BYTES = 128 << 20   # written between the cold runs (L2: 50 MB)
 
 
 class SmokeFailure(Exception):
@@ -280,12 +262,6 @@ def _nvidia_smi(query: str) -> str:
         capture_output=True, text=True, timeout=60)
     _require(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
-
-
-def _names_kernel(symbol: str, key: str) -> bool:
-    """Whether the profiler's kernel name ``key`` is the kernel ``symbol``
-    (``fwd_pass_kernel`` is not ``factor_fwd_pass_kernel``)."""
-    return re.search(rf"(?<!\w){symbol}(?!\w)", key) is not None
 
 
 def _kernel_name(wrapper) -> str:
@@ -333,58 +309,6 @@ def _ptxas_by_kernel(reports):
             words = ln.split()
             out[cur]["registers"] = int(words[words.index("registers,") - 1])
     return out
-
-
-def _device_ms(torch, fn, symbol, reps, flush=None):
-    """Mean device time of the kernel ``symbol`` (of every kernel, for
-    None) per ``fn()`` under torch.profiler (None if the profiler saw none).
-    With ``flush`` (a buffer larger than the L2), the buffer is written
-    before each run, so that ``fn`` finds its operands in device memory."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            if flush is not None:
-                flush.zero_()
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA
-             and (symbol is None or symbol in e.key))
-    return us / 1e3 / reps if us > 0 else None
-
-
-def _time_ms(torch, fn, reps):
-    """Mean ms of ``fn()`` over ``reps`` runs, by CUDA events after warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def _time_ms_cold(torch, fn, reps, flush):
-    """Mean ms of ``fn()`` by CUDA events around each run alone, with the
-    L2 flushed (``flush`` written) before each."""
-    fn()
-    total = 0.0
-    for _ in range(reps):
-        flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        total += start.elapsed_time(end)
-    return total / reps
 
 
 def _chains(torch, gen, T, m, dev):
@@ -477,14 +401,9 @@ def _poison_chain_nan(torch, args, col):
 
 
 def _cr_cases(torch, ck, gen, dev):
-    """K1-K3, K5.  Per kernel: the inputs of one CR pass over the 7 levels
-    (timed: one launch), the inputs of the kernel's other solve shapes
-    (``extra``, checked only), the kernel call, the twin call, and the
-    bytes / FLOPs the timed pass must move / do."""
-    fl = 4  # bytes per float32
-    n3, n2 = NB ** 3, NB ** 2
-    tri = NB * (NB + 1) // 2    # the pivot inverse reads only the lower triangle
-    cols = sum(h * B_LANES for h in LEVELS)
+    """K1-K3, K5.  Per kernel: the inputs of one CR pass over the 7 levels,
+    the inputs of the kernel's other solve shapes (``extra``), the kernel
+    call and the twin call."""
     cases = {}
 
     def pass_inputs(m):
@@ -513,84 +432,45 @@ def _cr_cases(torch, ck, gen, dev):
         return [levels, root_inv, f]
 
     n_pad = 2 * LEVELS[0]
-    # K1: the 7-level factor pass with the border columns: 12 of them on
-    # S10 (timed), 14 on G7, then the root's inverse and solution.  Least
-    # bytes: level 0 read once (each odd pivot's lower triangle, even
-    # blocks whole, O, F), every level's Minv, OL, OR, Fo and the root's
-    # inverse and solution written once.
-    m = 12
-    factor_flops = 2 * n3 // 6 + 2 * n3 + 10 * n3
-    root_flops = 2 * n3 // 6 + 2 * n3
-    blocks = sum(LEVELS)
+    # K1: the 7-level factor pass with the border columns, 12 of them on
+    # S10 and 14 on G7, then the root's inverse and solution.
     cases["crp_factor_fwd_pass"] = dict(
-        inputs=[pass_inputs(m)], extra=[pass_inputs(14)],
+        inputs=[pass_inputs(12)], extra=[pass_inputs(14)],
         kernel=ck.crp_factor_fwd_pass, plain=factor_fwd_pass_plain,
         flat=lambda out: _flat_pass(*out), poison=_poison_pass_pivot,
-        nan_must=(-2, -1),
-        bytes=B_LANES * fl * (n_pad // 2 * (tri + n2) + n_pad * (n2 + NB * m)
-                              + blocks * (3 * n2 + NB * m) + n2 + NB * m),
-        flops=cols * (factor_flops + 6 * n2 * m)
-        + B_LANES * (root_flops + 2 * n2 * m),
-        bytes_per_level_sum=cols * fl * ((tri + 3 * n2 + 2 * NB * m)
-                                         + (4 * n2 + 2 * NB * m)))
-    # K2: the 7-level forward elimination of one new rhs column (m = 1,
-    # timed) or of 12 (checked only), then the root solution.  Least bytes:
-    # the factor (every level's Minv, OL, OR and the root inverse) and
-    # level 0 of f read once, every level's fo and the root solution
-    # written once.  Per level, as the per-level kernel it replaces moved
-    # them: Minv, OL, OR, fo, fe read, fe2, br written.
-    m = 1
+        nan_must=(-2, -1))
+    # K2: the 7-level forward elimination of one new rhs column (m = 1) or
+    # of 12, then the root solution.
     cases["crp_fwd_pass"] = dict(
-        inputs=[fwd_inputs(m)], extra=[fwd_inputs(12)],
+        inputs=[fwd_inputs(1)], extra=[fwd_inputs(12)],
         kernel=ck.crp_fwd_pass,
         plain=lambda lv, ri, f: ck.fwd_pass_plain(lv, ri, ck._to_slab(f),
                                                   B_LANES),
         flat=lambda out: _flat_pass([], *out), poison=_poison_fwd_nan,
-        nan_must=(-1,),
-        bytes=B_LANES * fl * (blocks * 3 * n2 + n2 + n_pad * NB * m
-                              + blocks * NB * m + NB * m),
-        flops=cols * 6 * n2 * m + B_LANES * 2 * n2 * m,
-        bytes_per_level_sum=cols * fl * (3 * n2 + 2 * NB * m + 2 * NB * m))
-    # K3: the 7-level back-substitution of one rhs column (m = 1, timed),
-    # and of the 12 or 14 border columns in the factor + solve.  Least
-    # bytes: the factor, the saved rhs and the root solution read once, the
-    # solution written once.
+        nan_must=(-1,))
+    # K3: the 7-level back-substitution of one rhs column (m = 1), and of
+    # the 12 or 14 border columns in the factor + solve.
     cases["crp_bwd_pass"] = dict(
-        inputs=[bwd_inputs(m)], extra=[bwd_inputs(12), bwd_inputs(14)],
+        inputs=[bwd_inputs(1)], extra=[bwd_inputs(12), bwd_inputs(14)],
         kernel=ck.crp_bwd_pass,
         plain=lambda lv, st, x: ck._from_slab(
             ck.bwd_pass_plain(lv, st, x, B_LANES), B_LANES),
-        poison=_poison_pass_nan, nan_must=(0,),
-        bytes=B_LANES * fl * (blocks * (3 * n2 + NB * m) + NB * m
-                              + n_pad * NB * m),
-        flops=cols * 6 * n2 * m,
-        bytes_per_level_sum=cols * fl * (3 * n2 + 3 * NB * m + NB * m))
+        poison=_poison_pass_nan, nan_must=(0,))
     # K5: crp_factor's pass, K1 with no rhs: the 7 levels' factor, then
-    # the root's inverse.  Least bytes: level 0 read once (each odd pivot's
-    # lower triangle, even blocks whole, O), every level's Minv, OL, OR and
-    # the root's inverse written once.
-    def factor_inputs():
-        return pass_inputs(1)[:2]
-
+    # the root's inverse.
     cases["crp_factor_pass"] = dict(
-        inputs=[factor_inputs()], kernel=ck.crp_factor_pass,
+        inputs=[pass_inputs(1)[:2]], kernel=ck.crp_factor_pass,
         plain=lambda M, O: ck.factor_pass_plain(ck._to_slab(M), ck._to_slab(O),
                                                 B_LANES),
         flat=lambda out: _flat_pass(out[0], [], out[1]),
-        poison=_poison_pass_pivot, nan_must=(-1,),
-        bytes=B_LANES * fl * (n_pad // 2 * (tri + n2) + n_pad * n2
-                              + blocks * 3 * n2 + n2),
-        flops=cols * factor_flops + B_LANES * root_flops)
+        poison=_poison_pass_pivot, nan_must=(-1,))
     return cases
 
 
 def _chain_cases(torch, ch, gen, dev):
     """K6-K8 at T = TS blocks and B_LANES lanes, batch-last as the kernels
-    take them: border width 12 (S10; timed) and 14 (G7; ``extra``).  K7 and
-    K8 get the factors K6's twin made of the same chains."""
-    fl = 4
-    n3, n2 = NB ** 3, NB ** 2
-    tri = NB * (NB + 1) // 2
+    take them: border width 12 (S10) and 14 (G7; ``extra``).  K7 and K8 get
+    the factors K6's twin made of the same chains."""
     T = TS
 
     def operands(nB):
@@ -604,30 +484,20 @@ def _chain_cases(torch, ch, gen, dev):
                     back=[torch.cat([tRw, tr], dim=2).contiguous(), t2, coef])
 
     a, b = operands(12), operands(14)
-    nB = 12
-    nC = nB + 1     # K8 takes [tRw | tr]
-    cases = {}
-    cases["chain_factor"] = dict(
-        inputs=[a["factor"]], extra=[b["factor"]],
-        kernel=ch._factor_eliminate_batched, plain=ch.factor_eliminate_plain,
-        poison=_poison_chain_pivot,
-        bytes=B_LANES * fl * (T * ((tri + n2 + NB * nB)
-                                   + (2 * n2 + NB * nB)) + nB * nB),
-        flops=B_LANES * T * (2 * n3 // 6 + 2 * n3 + 4 * n2 * (NB + nB)
-                             + 2 * NB * nB * nB + n2 + NB * nB + nB * nB))
-    cases["chain_rhs_forward"] = dict(
-        inputs=[a["rhs"]], extra=[b["rhs"]],
-        kernel=ch._rhs_forward_batched, plain=ch.rhs_forward_plain,
-        poison=_poison_chain_nan,
-        bytes=B_LANES * fl * (T * (2 * n2 + NB * nB + NB + NB) + nB),
-        flops=B_LANES * T * (4 * n2 + 2 * NB * nB + NB + nB))
-    cases["chain_back_sub"] = dict(
-        inputs=[a["back"]], extra=[b["back"]],
-        kernel=ch._back_substitute_batched, plain=ch.back_substitute_plain,
-        poison=_poison_chain_nan,
-        bytes=B_LANES * fl * (T * (NB * nC + n2 + NB) + nC),
-        flops=B_LANES * T * (2 * NB * nC + 2 * n2 + NB))
-    return cases
+    return {
+        "chain_factor": dict(
+            inputs=[a["factor"]], extra=[b["factor"]],
+            kernel=ch._factor_eliminate_batched,
+            plain=ch.factor_eliminate_plain, poison=_poison_chain_pivot),
+        "chain_rhs_forward": dict(
+            inputs=[a["rhs"]], extra=[b["rhs"]],
+            kernel=ch._rhs_forward_batched, plain=ch.rhs_forward_plain,
+            poison=_poison_chain_nan),
+        "chain_back_sub": dict(
+            inputs=[a["back"]], extra=[b["back"]],
+            kernel=ch._back_substitute_batched,
+            plain=ch.back_substitute_plain, poison=_poison_chain_nan),
+    }
 
 
 def _node_cases(torch, gen, dev):
@@ -678,38 +548,127 @@ def _node_cases(torch, gen, dev):
     def poison(torch, args, col):
         args[0][col, 1] = float("nan")
 
+    return {
+        "node_blocks": dict(
+            kernel=node, plain=node_plain, inputs=[(Z, dt, y)],
+            poison=poison, nan_must=(0, 1, 2), tol=TOL_NODE),
+        "defect_blocks": dict(
+            kernel=lambda Z, dt: nodekern.defect_blocks(Z, dt, par, fld),
+            plain=lambda Z, dt: jac64(Z.double(), dt.double(), inst64),
+            inputs=[(Z, dt)], poison=poison, nan_must=(0, 1), tol=TOL_NODE),
+    }
+
+
+def _bounds() -> dict:
+    """{kernel: (bytes, flops)} of one launch of each ROOFLINE_KERNELS
+    kernel at its case's first shape, float32: the least bytes it must move
+    (every operand read once, every output written once) and its
+    operations."""
+    from tol_tpu_torch.ops import nodekern
+
     fl = 4
+    n3, n2 = NB ** 3, NB ** 2
+    tri = NB * (NB + 1) // 2    # the pivot inverse reads only the lower triangle
+    n_pad, blocks = 2 * LEVELS[0], sum(LEVELS)
+    T, nB = TS, 12
+    nC = nB + 1                 # K8 takes [tRw | tr]
     nodes = B_LANES * (TS + 1)
     out_h = (NB + 1) ** 2 + NS_DEFECT * NB + NS_DEFECT
     out_j = NS_DEFECT * NB + NS_DEFECT
     return {
-        "node_blocks": dict(
-            kernel=node, plain=node_plain, inputs=[(Z, dt, y)],
-            poison=poison, nan_must=(0, 1, 2), tol=TOL_NODE,
-            # z and the outputs of every node, the lanes' dt, the
-            # multipliers of the T defects, the 17 airframe and scale numbers
-            bytes=fl * (nodes * (NB + out_h) + B_LANES
-                        + B_LANES * TS * NS_DEFECT + nodekern.PAR_FLOATS),
-            flops=nodes * NODE_FLOPS["node_blocks"]),
-        "defect_blocks": dict(
-            kernel=lambda Z, dt: nodekern.defect_blocks(Z, dt, par, fld),
-            plain=lambda Z, dt: jac64(Z.double(), dt.double(), inst64),
-            inputs=[(Z, dt)], poison=poison, nan_must=(0, 1), tol=TOL_NODE,
-            bytes=fl * (B_LANES * TS * (NB + out_j) + B_LANES
-                        + nodekern.PAR_FLOATS),
-            flops=B_LANES * TS * NODE_FLOPS["defect_blocks"]),
+        # K5: level 0 read once (each odd pivot's lower triangle, even
+        # blocks whole, O), every level's Minv, OL, OR and the root's
+        # inverse written once
+        "crp_factor_pass": (
+            B_LANES * fl * (n_pad // 2 * (tri + n2) + n_pad * n2
+                            + blocks * 3 * n2 + n2),
+            blocks * B_LANES * (2 * n3 // 6 + 12 * n3)
+            + B_LANES * (2 * n3 // 6 + 2 * n3)),
+        # K6-K8 at border width 12
+        "chain_factor": (
+            B_LANES * fl * (T * ((tri + n2 + NB * nB) + (2 * n2 + NB * nB))
+                            + nB * nB),
+            B_LANES * T * (2 * n3 // 6 + 2 * n3 + 4 * n2 * (NB + nB)
+                           + 2 * NB * nB * nB + n2 + NB * nB + nB * nB)),
+        "chain_rhs_forward": (
+            B_LANES * fl * (T * (2 * n2 + NB * nB + NB + NB) + nB),
+            B_LANES * T * (4 * n2 + 2 * NB * nB + NB + nB)),
+        "chain_back_sub": (
+            B_LANES * fl * (T * (NB * nC + n2 + NB) + nC),
+            B_LANES * T * (2 * NB * nC + 2 * n2 + NB)),
+        # K9: z and the outputs of every node, the lanes' dt, the
+        # multipliers of the T defects, the 17 airframe and scale numbers
+        "node_blocks": (
+            fl * (nodes * (NB + out_h) + B_LANES + B_LANES * TS * NS_DEFECT
+                  + nodekern.PAR_FLOATS),
+            nodes * NODE_FLOPS["node_blocks"]),
+        "defect_blocks": (
+            fl * (B_LANES * TS * (NB + out_j) + B_LANES + nodekern.PAR_FLOATS),
+            B_LANES * TS * NODE_FLOPS["defect_blocks"]),
     }
 
 
-def check_kernels(torch, ck, ch, dev, latency):
-    """Phase 2.  Returns the per-kernel records of the kernels line;
-    ``latency`` holds the clock phase's cycles per sqrt, quotient and FMA."""
+def _device_ms(torch, fn, symbol, tries=3):
+    """Mean device time of the kernel ``symbol`` per ``fn()`` over
+    ROOFLINE_REPS warm runs under torch.profiler (None if the profiler saw
+    none in ``tries`` profiles: now and then a profile misses a kernel)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(ROOFLINE_REPS):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and symbol in e.key)
+        if us > 0:
+            return us / 1e3 / ROOFLINE_REPS
+    return None
+
+
+def _roofline(torch, case, name, counts) -> dict:
+    """One kernel's device time against its bound."""
+    n_bytes, flops = counts
+    device_ms = _device_ms(torch, lambda: case["kernel"](*case["inputs"][0]),
+                           SYMBOLS[name])
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    return dict(device_ms=device_ms, bound_ms=bound_ms,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_share=bound_ms / device_ms if device_ms else None,
+                bytes=n_bytes, flops=flops)
+
+
+def check_fast_ops(torch, dev) -> dict:
+    """K6's fast-path square root and quotient (``crk::FastOps``) against
+    the IEEE routines on FAST_OPS_OPERANDS operands each
+    (``fast_ops_check`` in ``csrc/chainkern.cu``): no bit may differ."""
+    from tol_tpu_torch.ops import _build
+
+    lib = _build.load_library("chainkern")
+    counts = torch.zeros(4, dtype=torch.int64, device=dev)
+    code = lib.fast_ops_check(FAST_OPS_OPERANDS, counts.data_ptr(),
+                              torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, code, "fast_ops_check")
+    c = counts.tolist()
+    fast = dict(sqrt_tested=c[1], sqrt_bits_differ=c[0],
+                quotient_tested=c[3], quotient_bits_differ=c[2])
+    _require(fast["sqrt_bits_differ"] == 0
+             and fast["quotient_bits_differ"] == 0,
+             f"K6's fast square root or quotient differs from IEEE: {fast}")
+    return fast
+
+
+def check_kernels(torch, ck, ch, dev):
+    """Phase 2.  Returns the per-kernel records of the kernels line."""
     gen = torch.Generator(device=dev).manual_seed(1)
-    sm_hz = float(_nvidia_smi("clocks.max.sm").split()[0]) * 1e6
     cases = _cr_cases(torch, ck, gen, dev)
     cases.update(_chain_cases(torch, ch, gen, dev))
     cases.update(_node_cases(torch, gen, dev))
-    flush = torch.empty(L2_FLUSH_BYTES // 4, device=dev)
+    bounds = _bounds()
     records = {}
     for name, case in cases.items():
         abs_err = rel_err = 0.0
@@ -741,76 +700,21 @@ def check_kernels(torch, ck, ch, dev, latency):
         if name == "chain_factor":
             _require(not bool(torch.isnan(got[0][:2]).any()),
                      "chain_factor: NaN before the indefinite block")
-
-        def run_kernel(case=case):
-            for a in case["inputs"]:
-                case["kernel"](*a)
-
-        def run_plain(case=case):
-            for a in case["inputs"]:
-                case["plain"](*a)
-
-        ms = _time_ms(torch, run_kernel, 50)
-        device_ms = _device_ms(torch, run_kernel, SYMBOLS[name], 20)
-        ms_cold = _time_ms_cold(torch, run_kernel, 20, flush)
-        device_ms_cold = _device_ms(torch, run_kernel, SYMBOLS[name], 20,
-                                    flush=flush)
-        plain_ms = _time_ms(torch, run_plain, 3)
-        t_bytes = case["bytes"] / HBM_BYTES_PER_S * 1e3
-        t_ops = case["flops"] / FP32_FLOP_PER_S * 1e3
         source, replaces = KERNELS[name]
         records[name] = dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=0, max_abs_err=abs_err, max_rel_err=rel_err,
-            tolerance_rel=tol,
-            ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations",
-            library_ms=None, device_ms=device_ms, ms_cold_l2=ms_cold,
-            device_ms_cold_l2=device_ms_cold,
-            launches_per_pass=len(case["inputs"]),
-            bytes=case["bytes"], flops=case["flops"])
-        if "bytes_per_level_sum" in case:
-            records[name]["bound_ms_per_level_sum"] = max(
-                case["bytes_per_level_sum"] / HBM_BYTES_PER_S,
-                case["flops"] / FP32_FLOP_PER_S) * 1e3
-        if name in CHAIN_DEPTH:
-            # what the T dependent steps alone cost at the card's highest
-            # SM clock, whatever the bytes
-            records[name]["chain_floor_ms"] = (
-                TS * CHAIN_DEPTH[name] * DEP_OP_CYCLES / sm_hz * 1e3)
-            records[name]["chain_floor_ms_measured_latency"] = TS * sum(
-                n * latency[op] for op, n in CHAIN_OPS[name].items()
-            ) / sm_hz * 1e3
-            extra = case["extra"]
-            records[name]["ms_border_14"] = _time_ms(
-                torch, lambda: [case["kernel"](*a) for a in extra], 50)
-
-    # No single PyTorch call computes what a kernel computes (a whole CR
-    # pass, a sequential chain with its carries), so library_ms stays None.
-    _, O, _, r = cases["chain_rhs_forward"]["inputs"][0]
-    records["chain_rhs_forward"]["lanes_last_copies_device_ms"] = (
-        k7_copies_device_ms(torch, ch, O, r))
+            tolerance_rel=tol)
+        if name in ROOFLINE_KERNELS:
+            records[name].update(_roofline(torch, case, name, bounds[name]))
     return records
-
-
-def k7_copies_device_ms(torch, ch, O, r):
-    """Device ms of the batch-last copies of O (T, 11, 11, B) and r
-    (T, 11, 1, B) that chain_rhs_forward makes of the solver's batch-first
-    operands on every call (Dinv and tRw come batch-last from K6: no
-    copy)."""
-    O_first = ch._lanes_first(O).contiguous()
-    r_first = r[:, :, 0].permute(2, 0, 1).contiguous()
-    return dict(
-        O=_device_ms(torch, lambda: ch._lanes_last(O_first), None, 20),
-        r=_device_ms(torch, lambda: ch._lanes_last(r_first[..., None]), None,
-                     20))
 
 
 def sweep_chain_kernels(torch, ch, dev):
     """K6-K8 at every launch shape of SWEEP on the kernels phase's shapes
     (T = TS, B_LANES lanes, border width 12, 13 for K8) and K7 also at
-    border width 14: device ms under torch.profiler (20 runs), ms by CUDA
-    events, and whether the outputs have the bits of the shipped shape's."""
+    border width 14: whether the outputs have the bits of the shipped
+    shape's."""
     gen = torch.Generator(device=dev).manual_seed(3)
     cases = _chain_cases(torch, ch, gen, dev)
     out = {}
@@ -821,16 +725,12 @@ def sweep_chain_kernels(torch, ch, dev):
         refs = [_tuple(kernel(*a)) for a in others]
         rows = []
         for G, th in grid:
-            run = lambda: kernel(*args, group=G, threads=th)
-            got = _tuple(run())
+            got = _tuple(kernel(*args, group=G, threads=th))
             same = all(bool(torch.equal(g, r)) for g, r in zip(got, ref))
             for a, want in zip(others, refs):
                 same &= all(bool(torch.equal(g, r)) for g, r in zip(
                     _tuple(kernel(*a, group=G, threads=th)), want))
-            rows.append(dict(
-                group=G, threads=th,
-                device_ms=_device_ms(torch, run, SYMBOLS[name], 20),
-                ms=_time_ms(torch, run, 20), same_bits=same))
+            rows.append(dict(group=G, threads=th, same_bits=same))
         _require(all(r["same_bits"] for r in rows),
                  f"{name}: the bits depend on the launch shape")
         out[name] = rows
@@ -904,9 +804,6 @@ def check_chains(torch, ck, ch, dev, m=12):
     # every kernel of a chain solve (K9 takes no part in one)
     _require(all(v > 0 for k, v in launches.items() if k not in NODE_KERNELS),
              f"a kernel was never launched by the chain solves: {launches}")
-    for name, fn in ways.items():
-        rec[f"{name}_ms"] = _time_ms(torch, fn, 20)
-    rec["dense_cholesky_solve_ms"] = _time_ms(torch, dense, 5)
     return rec, launches
 
 
@@ -1033,13 +930,10 @@ def run_solve(torch, ck, ch, path, ctx, lanes, dive_chain, expect,
         dive_kkt=kkt_dive)
     _reset_launch_counts(ck, ch)
     torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
-    t0 = time.time()
     res = gsolve([can.nlp.inst0] * (lanes // B_LANES), None,
                  ctx["v0s"][:lanes], ctx["p1"], ctx["p2"], ctx["p2d"],
                  spec["n1"], -1.0)
     torch.cuda.synchronize()
-    wall = time.time() - t0
     launches = _launch_counts(ck, ch)
     ctx.setdefault("results", {})[path] = res
 
@@ -1066,11 +960,9 @@ def run_solve(torch, ck, ch, path, ctx, lanes, dive_chain, expect,
         median_iters=int(np.median(res.iterations)),
         p90_iters=int(np.percentile(res.iterations, 90)),
         group_iters=res.group_iters, drain_iters=res.drain_iters,
-        wall_s=wall, launches=launches, captures=gsolve.programs.captures,
-        capture_s=gsolve.programs.capture_s,
+        launches=launches, captures=gsolve.programs.captures,
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
         **(extra or {}))
-    rec["ms_per_iteration"] = 1e3 * wall / (res.group_iters + res.drain_iters)
     print(json.dumps(rec), flush=True)
     _require(all(launches[k] > 0 for k in expect),
              f"{path}: a kernel of the path was never launched: {launches}")
@@ -1080,8 +972,9 @@ def run_solve(torch, ck, ch, path, ctx, lanes, dive_chain, expect,
 
 
 def run_solves(torch, ck, ch, dev):
-    """Phase 4.  Returns (launches per path, profile context, the s10
-    solve's final v)."""
+    """Phase 4.  Returns (launches per path, the utils phase's dive: the s10
+    problem, its first group's seeds and the dive's body, the s10 solve's
+    final v)."""
     by_path = {}
     s10 = make_mission(torch, "S10", S10_LANES, dev)
     rec, by_path["s10"], gap_crp = run_solve(
@@ -1117,10 +1010,8 @@ def run_solves(torch, ck, ch, dev):
                  gap_under_gate=int((gap_crp[:B_LANES] < 1e-2).sum())),
         pallas=dict(median_cost_gap=float(np.median(gap_seq)),
                     gap_under_gate=int((gap_seq < 1e-2).sum())))), flush=True)
-    bodies = [("dive", s10["dive_opts"], 0, "crp", s10["p1"]),
-              ("dive_pallas", s10["dive_opts"], 0, "pallas", s10["p1"]),
-              ("endgame", s10["opts"], 1, "crp", s10["p2"])]
-    return (by_path, (s10["can"], s10["v0s"][:B_LANES], bodies),
+    dive = ("dive", s10["dive_opts"], 0, "crp", s10["p1"])
+    return (by_path, (s10["can"], s10["v0s"][:B_LANES], dive),
             s10["results"]["s10"].v)
 
 
@@ -1128,7 +1019,7 @@ def run_storm(torch, ck, ch, dev):
     """The storm solve, bench.py config 5: S10 / tempest / wind model 3 on
     the demo storm grid (order 2, interp "auto": separable at 384 cells),
     gated as bench.py gates it against ``tests/golden_storm_ts100.npy``.
-    Returns (launches, profile context)."""
+    Returns the launches."""
     storm = make_mission(torch, "storm", STORM_LANES, dev)
     rec, launches, _ = run_solve(torch, ck, ch, "storm", storm, STORM_LANES,
                                  "crp", CR_PASS_KERNELS)
@@ -1138,8 +1029,7 @@ def run_storm(torch, ck, ch, dev):
     _require(rec["gated_pass_with_cost_gap"] >= 0.9 * STORM_LANES,
              f"storm gate: {rec['gated_pass_with_cost_gap']}/{STORM_LANES} "
              "lanes pass (< 90%)")
-    bodies = [("storm_endgame", storm["opts"], 1, "crp", storm["p2"])]
-    return launches, (storm["can"], storm["v0s"][:B_LANES], bodies)
+    return launches
 
 
 def run_replan(torch, ck, ch, dev):
@@ -1161,12 +1051,8 @@ def run_replan(torch, ck, ch, dev):
     legs = []
 
     def leg(goal, stitch=None):
-        torch.cuda.synchronize()
-        t0 = time.time()
         doc = solve_leg("G7", goal, stitch=stitch)
-        torch.cuda.synchronize()
-        legs.append(dict(ms=1e3 * (time.time() - t0),
-                         iterations=doc["iterations"],
+        legs.append(dict(iterations=doc["iterations"],
                          converged=doc["converged"],
                          used_warm=doc["used_warm"],
                          winner_lane=doc["winner_lane"]))
@@ -1188,14 +1074,10 @@ def run_replan(torch, ck, ch, dev):
         doc = leg(Goal(xg=rng_d * math.cos(ang), yg=rng_d * math.sin(ang),
                        zg=0.0, rg=0.0), st)
     launches = _launch_counts(ck, ch)
-    warm_ms = [x["ms"] for x in legs[1:]]
     rec = dict(
         phase="replan", mission="G7", aircraft="skywalker", wind_model=1,
         ts=TS, dtype="float32", ensemble=B_LANES, chunk=48, max_iter=600,
-        chain="crp", legs=legs, cold_leg_s=legs[0]["ms"] / 1e3,
-        replans=REPLANS,
-        p50_ms=float(np.percentile(warm_ms, 50)) if warm_ms else None,
-        p90_ms=float(np.percentile(warm_ms, 90)) if warm_ms else None,
+        chain="crp", legs=legs, replans=REPLANS,
         converged=sum(x["converged"] for x in legs), legs_run=len(legs),
         reduced=([f"replans 9 -> {REPLANS}"] if REPLANS < 9 else []),
         launches=launches,
@@ -1219,18 +1101,16 @@ def run_cli():
         cmd = [sys.executable, "-m", "tol_tpu_torch", "0", "0", "0", "0",
                "-100", "0", "100", "tempest", "S10", "--ts", "24",
                "--out", out]
-        t0 = time.time()
         proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
                               timeout=600,
                               env={**os.environ, "PYTHONPATH": HERE})
-        wall = time.time() - t0
         _require(proc.returncode == 0,
                  f"cli: exit {proc.returncode}: {proc.stderr[-2000:]}")
         with open(out) as f:
             doc = json.load(f)
     tr = doc["trajectory"]
     radius = np.hypot(np.asarray(tr["x"]) + 100.0, np.asarray(tr["y"]))
-    rec = dict(phase="cli", command=" ".join(cmd[1:-2]), seconds=wall,
+    rec = dict(phase="cli", command=" ".join(cmd[1:-2]),
                converged=doc["converged"], iterations=doc["iterations"],
                kkt_err=doc["kkt_err"], final_cost=doc["FinalCost"],
                dt=doc["dt"], nodes=len(tr["x"]),
@@ -1265,12 +1145,10 @@ def run_bench():
     and 3 (the four-airframe sweep).  It must exit 0 and print bench.py's
     JSON last, with bench.py's keys, finite results and all four airframes.
     Returns the hand-written kernels' launches of its run."""
-    t0 = time.time()
     proc = subprocess.run([sys.executable, "bench_torch.py"], cwd=HERE,
                           capture_output=True, text=True, timeout=600,
                           env={**os.environ, "PYTHONPATH": HERE,
                                **{k: v for k, (_, v) in BENCH_CUTS.items()}})
-    wall = time.time() - t0
     _require(proc.returncode == 0,
              f"bench: exit {proc.returncode}: {proc.stderr[-2000:]}")
     try:
@@ -1280,7 +1158,7 @@ def run_bench():
     top, detail = _bench_py_keys()
     d = res.get("detail", {})
     launches = d.get("launches", {})
-    rec = dict(phase="bench", seconds=wall,
+    rec = dict(phase="bench",
                reduced=[f"{k} {a} -> {b}" for k, (a, b) in BENCH_CUTS.items()],
                result=res)
     print(json.dumps(rec), flush=True)
@@ -1321,12 +1199,10 @@ def run_parallel(torch, ck, ch, dev):
     from tol_tpu_torch.solver.canonical import canonicalize
     from tol_tpu_torch.solver.kkt_condensed import make_condensed_kkt
 
-    t0 = time.time()
     mesh = make_mesh()
     _require(dist.get_backend() == "nccl" and dist.get_world_size() == 1
              and mesh.shape == (1, 1) and mesh.device_type == "cuda",
              f"parallel: not a NCCL world of one: {mesh}")
-    mesh_s = time.time() - t0
     can = canonicalize(make_problem("S10", "tempest", ts=PAR_TS,
                                     dtype=torch.float32, device=dev),
                        scaling="auto")
@@ -1344,11 +1220,8 @@ def run_parallel(torch, ck, ch, dev):
         return alm_solve(can, kkt, opts, v0=v, params=p)
 
     _reset_launch_counts(ck, ch)
-    torch.cuda.synchronize()
-    t0 = time.time()
     res = sharded_batch_solve(mesh, solve_batch, None, v0s)
     torch.cuda.synchronize()
-    wall = time.time() - t0
     launches = _launch_counts(ck, ch)
     plain = alm_solve(can, kkt, opts, v0=v0s, params=p)
     same = {k: bool(torch.equal(getattr(res, k), getattr(plain, k)))
@@ -1360,10 +1233,10 @@ def run_parallel(torch, ck, ch, dev):
         phase="parallel", mission="S10", aircraft="tempest", wind_model=1,
         ts=PAR_TS, dtype="float32", lanes=PAR_LANES, chain="crp",
         backend=dist.get_backend(), world_size=dist.get_world_size(),
-        mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)), mesh_s=mesh_s,
+        mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)),
         max_iter=PAR_ITERS, converged=int(res.converged.sum()),
         median_iters=float(res.iterations.float().median()),
-        wall_s=wall, bits_equal_plain_solve=same,
+        bits_equal_plain_solve=same,
         psum=float(total), local_sum=float(res.constr_viol.sum()),
         stats_to_host_equal=bool(np.array_equal(host_v,
                                                 res.v.cpu().numpy())),
@@ -1387,13 +1260,12 @@ def run_scaling(torch, ck, ch):
     import bench_scaling_torch
 
     _reset_launch_counts(ck, ch)
-    t0 = time.time()
     out = bench_scaling_torch.main_gpu_batch_curve(SCALING_BATCHES,
                                                    SCALING_ITERS)
     launches = _launch_counts(ck, ch)
     rates = out["detail"]["instance_iters_per_s"]
-    print(json.dumps(dict(phase="scaling", seconds=time.time() - t0,
-                          launches=launches, **out)), flush=True)
+    print(json.dumps(dict(phase="scaling", launches=launches, **out)),
+          flush=True)
     _require(all(r > 0 and np.isfinite(r) for r in rates.values())
              and all(n == SCALING_ITERS
                      for n in out["detail"]["iterations_run"].values()),
@@ -1408,31 +1280,24 @@ def run_entry(torch):
     the mesh of the parallel phase's world."""
     import graft_entry_torch
 
-    t0 = time.time()
     fn, args = graft_entry_torch.entry()
     f, max_c, v = fn(*args)
-    torch.cuda.synchronize()
-    step_s = time.time() - t0
-    t0 = time.time()
     graft_entry_torch.dryrun_multichip(1)
-    dry_s = time.time() - t0
     finite = {k: bool(torch.isfinite(x).all())
               for k, x in (("f", f), ("max_c", max_c), ("v", v))}
     print(json.dumps(dict(
         phase="entry", lanes=int(v.shape[0]), n=int(v.shape[1]),
-        dtype=str(v.dtype), device=str(v.device), step_s=step_s,
-        f=f.tolist(), max_c=max_c.tolist(), finite=finite,
-        dryrun_multichip_1_s=dry_s)), flush=True)
+        dtype=str(v.dtype), device=str(v.device), f=f.tolist(),
+        max_c=max_c.tolist(), finite=finite)), flush=True)
     _require(all(finite.values()) and v.device.type == "cuda"
              and v.shape == (8, 1112),
              f"entry: the step is not finite on the card: {finite}")
 
 
-def run_utils(torch, ck, ch, timer, s10_v, par, ctx):
-    """The utilities on the card: checkpoint round trip, the stage timer's
-    report, one crp dive step traced and its flops against the peak: over
-    the mean wall of an untraced window of the same step (the share a
-    user's solve reaches) and over the traced step's device busy time."""
+def run_utils(torch, s10_v, par, ctx):
+    """The utilities on the card: checkpoint round trip, one crp dive step
+    traced, whose trace must name K1-K3, and that step's flops and the
+    card's peak."""
     import tempfile
 
     from tol_tpu_torch.solver.alm import make_kernel
@@ -1450,50 +1315,27 @@ def run_utils(torch, ck, ch, timer, s10_v, par, ctx):
             parallel_v=meta["v_parallel"].tobytes()
             == par.v.cpu().numpy().tobytes())
 
-        can, v0s, bodies = ctx
-        name, opts, refine, chain, p = bodies[0]
+        can, v0s, body = ctx
+        name, opts, refine, chain, p = body
         _require(name == "dive" and chain == "crp", f"utils: body {name}")
         kern = make_kernel(can, make_condensed_kkt(can, refine=refine,
                                                    chain=chain),
                            opts, can.nlp.inst0, v0s)
         st = kern.init_state(p, p, False)
-        for _ in range(PROFILE_WARM_STEPS):
+        for _ in range(UTILS_WARM_STEPS):
             st, _ = kern.substep(st, None, p, p, None)
-        torch.cuda.synchronize()
-        # the untraced window: the same step from the same state, repeated
-        t0 = time.time()
-        for _ in range(UTILS_STEPS):
-            kern.substep(st, None, p, p, None)
-        torch.cuda.synchronize()
-        step_s = (time.time() - t0) / UTILS_STEPS
         with trace(os.path.join(tmp, "trace")) as prof:
-            t0 = time.time()
             kern.substep(st, None, p, p, None)
             torch.cuda.synchronize()
-            wall = time.time() - t0
         with open(prof.trace_path) as f:
             names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
     named = {k: any(SYMBOLS[k] in n for n in names) for k in CR_PASS_KERNELS}
-    from torch.autograd import DeviceType
-    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA) / 1e3
     flops = program_flops(lambda: kern.substep(st, None, p, p, None))
     peak = peak_flops()
-    rate = flops / step_s
-    busy_rate = flops / (busy_ms / 1e3) if busy_ms else None
     rec = dict(
         phase="utils", checkpoint_bits_equal=bits,
-        stage_timer=timer.report().splitlines(),
-        step=dict(body="dive", chain="crp", lanes=int(v0s.shape[0]), ts=TS,
-                  untraced_steps=UTILS_STEPS, wall_ms=1e3 * step_s),
-        traced_step=dict(wall_ms=1e3 * wall, device_busy_ms=busy_ms or None,
-                         trace_names_kernels=named),
-        flops_per_step=flops, flops_per_s_over_wall=rate,
-        flops_per_s_over_device_busy=busy_rate,
-        peak_flops=peak, share_of_peak=rate / peak if peak else None,
-        share_of_peak_over_device_busy=(busy_rate / peak
-                                        if peak and busy_rate else None),
-        card=_nvidia_smi("name,power.limit"),
+        step=dict(body="dive", chain="crp", lanes=int(v0s.shape[0]), ts=TS),
+        trace_names_kernels=named, flops_per_step=flops, peak_flops=peak,
         note=("aten flops by XLA's cost-analysis convention; the "
               "hand-written kernels and library factorizations count none"))
     print(json.dumps(rec), flush=True)
@@ -1507,10 +1349,7 @@ def run_utils(torch, ck, ch, timer, s10_v, par, ctx):
 # phase 4c: the solver loop as captured programs against the eager loop
 # ---------------------------------------------------------------------------
 
-GRAPH_REPLAYS = 20      # replays timed per program
-GRAPH_EAGER_STEPS = 3   # eager steps of the same unit timed per program
 GRAPH_DEPTH = (8, 16, 24)    # the eager comparison: dive, group cap, budget
-PROFILE_WARM_STEPS = 2       # substeps from the seeds before a profiled step
 BENCH_GATE = 1008       # config 1: the reference's round-5 count of 1024
 
 
@@ -1535,110 +1374,36 @@ def _field_diff(torch, a, b) -> dict:
     return out
 
 
-def replay_profile(torch, prog, replays=GRAPH_REPLAYS,
-                   eager_steps=GRAPH_EAGER_STEPS) -> dict:
-    """A captured step program's replay: its wall by the host clock over
-    ``replays`` replays, beside the same unit run eagerly (``eager_steps``
-    steps); then one replay under torch.profiler:
-    device busy time and the hand-written kernels' share of it, the idle
-    share of the untraced replay's wall (busy over that wall, whose busy
-    time is the traced replay's and runs a little long: clamped at 0),
-    the idle share of the traced replay's own first-to-last kernel span
-    (tracing lengthens a graph's gaps, so this one reads high), the
-    kernel nodes it launched and the hand-written kernels among them."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    t0 = time.time()
-    for _ in range(replays):
-        prog.run()
-    torch.cuda.synchronize()
-    replay_ms = 1e3 * (time.time() - t0) / replays
-    eager_ms = None
-    if eager_steps:
-        t0 = time.time()
-        for _ in range(eager_steps):
-            prog.step()
-        torch.cuda.synchronize()
-        eager_ms = 1e3 * (time.time() - t0) / eager_steps
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        prog.run()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    measured = busy_ms > 0
-    spans = [e.time_range for e in prof.events()
-             if e.device_type == DeviceType.CUDA]
-    span_ms = ((max(r.end for r in spans) - min(r.start for r in spans)) / 1e3
-               if spans else 0.0)
-    in_graph = {k: sum(e.count for e in kernels if _names_kernel(sym, e.key))
-                for k, sym in SYMBOLS.items()}
-    hand_ms = sum(e.self_device_time_total for e in kernels
-                  if any(_names_kernel(sym, e.key)
-                         for sym in SYMBOLS.values())) / 1e3
-    return dict(
-        replay_ms=replay_ms, eager_step_ms=eager_ms,
-        device_busy_ms=busy_ms if measured else None,
-        hand_kernels_ms=hand_ms if measured else None,
-        busy_over_replay_wall=busy_ms / replay_ms if measured else None,
-        device_idle_share=max(0.0, 1.0 - busy_ms / replay_ms) if measured
-        else None,
-        traced_span_ms=span_ms if measured else None,
-        traced_span_idle_share=(1.0 - busy_ms / span_ms)
-        if measured and span_ms else None,
-        kernel_nodes=sum(e.count for e in kernels) if measured else None,
-        hand_kernels_in_replay={k: n for k, n in in_graph.items() if n},
-        launches_per_replay={_kernel_name(k): n
-                             for k, n in prog.launches.items()},
-        capture_s=prog.capture_s)
-
-
 def _stage_runs(torch, g, ctx, lanes, stages):
     """The first group of ``ctx`` through ``g``'s programs: the dive and the
     phase switch, then (with "endgame" in ``stages``) the endgame and a
     drain of the whole group (its converged lanes frozen).  Returns the
-    state after each stage, its seconds and its steps."""
+    state after each stage and its steps."""
     can, spec = ctx["can"], ctx["spec"]
     inst, dev = can.nlp.inst0, ctx["v0s"].device
     n_max = torch.tensor(spec["n1"], dtype=torch.int32, device=dev)
     xdf = torch.tensor(-1.0, dtype=torch.float32, device=dev)
-    states, secs = {}, {}
-
-    def timed(name, fn):
-        torch.cuda.synchronize()
-        t0 = time.time()
-        out = fn()
-        torch.cuda.synchronize()
-        secs[name] = time.time() - t0
-        states[name] = out if name == "dive" else out.state
-        return states[name]
-
-    st = timed("dive", lambda: g.run_dive(inst, ctx["v0s"][:lanes],
-                                          ctx["p1"], ctx["p2"], n_max))
-    if "endgame" in stages:
-        end = timed("endgame", lambda: g.run_end(inst, st, ctx["p2"]))
-        timed("drain", lambda: g.run_drain(inst, end, ctx["p1"], ctx["p2d"],
-                                           n_max, xdf))
+    states = {"dive": g.run_dive(inst, ctx["v0s"][:lanes], ctx["p1"],
+                                 ctx["p2"], n_max)}
     steps = {"dive": spec["n1"]}
     if "endgame" in stages:
-        steps["endgame"] = int((states["endgame"].it - st.it).max())
+        states["endgame"] = g.run_end(inst, states["dive"], ctx["p2"]).state
+        states["drain"] = g.run_drain(inst, states["endgame"], ctx["p1"],
+                                      ctx["p2d"], n_max, xdf).state
+        steps["endgame"] = int((states["endgame"].it
+                                - states["dive"].it).max())
         steps["drain"] = int((states["drain"].it
                               - states["endgame"].it).max())
-    return states, secs, steps
+    return states, steps
 
 
 def compare_programs(torch, ck, ch, path, ctx, dive_chain, stages,
                      end_chain="crp", lanes=B_LANES, phase="graph",
-                     reduced=(), replays=GRAPH_REPLAYS,
-                     eager_steps=GRAPH_EAGER_STEPS,
-                     profiled=("dive", "endgame", "drain")):
+                     reduced=()):
     """One group of ``lanes`` through the grouped solver's dive, switch,
     endgame and drain, eagerly and through the captured programs: the bits
     of every ALMState field after each stage, the launches of both runs,
-    ms per step of each, and each program's replay profile."""
+    and the hand kernels each captured program launches a replay."""
     from tol_tpu_torch.solver.batch import make_grouped_solver
 
     can = ctx["can"]
@@ -1650,23 +1415,21 @@ def compare_programs(torch, ck, ch, path, ctx, dive_chain, stages,
             dive_opts=ctx["dive_opts"], dive_kkt=kkt_dive, _loop=loop)
         _reset_launch_counts(ck, ch)
         torch.cuda.reset_peak_memory_stats()
-        states, secs, steps = _stage_runs(torch, g, ctx, lanes, stages)
-        runs[loop] = dict(states=states, secs=secs, steps=steps, g=g,
+        states, steps = _stage_runs(torch, g, ctx, lanes, stages)
+        runs[loop] = dict(states=states, steps=steps, g=g,
                           launches=_launch_counts(ck, ch),
                           peak_gib=torch.cuda.max_memory_allocated() / 2**30)
     eager, graph = runs["eager"], runs["program"]
     bits = {st: _field_diff(torch, graph["states"][st], eager["states"][st])
             for st in eager["states"]}
     g = graph["g"]
-    profiles = {}
+    replays = {}
     for prog in g.programs.programs.values():
         kind = ("drain" if prog.phase1 is not None
                 else "dive" if prog.opts == ctx["dive_opts"] else "endgame")
         # a stage of fewer than two steps captures nothing
-        profiles[kind] = (
-            "not captured" if prog.graph is None
-            else replay_profile(torch, prog, replays, eager_steps)
-            if kind in profiled else dict(capture_s=prog.capture_s))
+        replays[kind] = ("not captured" if prog.graph is None else
+                         {_kernel_name(k): n for k, n in prog.launches.items()})
     rec = dict(
         phase=phase, path=path, lanes=lanes, dive_chain=dive_chain,
         endgame_chain=end_chain, ts=can.nlp.T, reduced=list(reduced),
@@ -1674,15 +1437,10 @@ def compare_programs(torch, ck, ch, path, ctx, dive_chain, stages,
         bits_equal={st: all(v == "equal" for v in d.values())
                     for st, d in bits.items()},
         fields=bits,
-        ms_per_step={loop: {st: 1e3 * r["secs"][st] / max(1, r["steps"][st])
-                            for st in r["secs"]}
-                     for loop, r in runs.items()},
-        stage_s={loop: r["secs"] for loop, r in runs.items()},
         launches=dict(eager=eager["launches"], graph=graph["launches"]),
         launches_equal=eager["launches"] == graph["launches"],
         peak_mem_gib=dict(eager=eager["peak_gib"], graph=graph["peak_gib"]),
-        captures=g.programs.captures, capture_s=g.programs.capture_s,
-        replay=profiles)
+        captures=g.programs.captures, launches_per_replay=replays)
     print(json.dumps(rec), flush=True)
     return rec
 
@@ -1702,10 +1460,9 @@ def run_graph_bench(torch, ck, ch):
     dv, seeds = bt.bench_draw("s10", s.batch, can.n)
     _reset_launch_counts(ck, ch)
     torch.cuda.reset_peak_memory_stats()
-    res, wall, warm_s, _ = bt.run_s10(s, ctx, dv)
+    res = bt.run_s10(s, ctx, dv)[0]
     launches = _launch_counts(ck, ch)
     ok, feas_ok, gap = bt.gate_s10(s, can, res)
-    programs = ctx["gsolve"].programs
     rec = dict(
         phase="graph_bench", config="1 S10 / tempest", lanes=s.batch,
         group=s.group, drain=s.drain, n1=s.n1, cap=s.cap1,
@@ -1716,11 +1473,7 @@ def run_graph_bench(torch, ck, ch):
         median_iters=int(np.median(res.iterations)),
         p90_iters=int(np.percentile(res.iterations, 90)),
         group_iters=res.group_iters, drain_iters=res.drain_iters,
-        wall_s=wall, warm_up_s=warm_s, captures=programs.captures,
-        capture_s=programs.capture_s,
-        ms_per_group_iteration=1e3 * wall / (res.group_iters
-                                             + res.drain_iters),
-        value=int(ok.sum()) / wall,
+        captures=ctx["gsolve"].programs.captures,
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
         launches=launches)
     print(json.dumps(rec), flush=True)
@@ -1739,15 +1492,12 @@ def run_graph(torch, ck, ch, dev):
     cut = lambda ctx: (_cut(torch, ctx, *GRAPH_DEPTH),
                        [_depth_note(ctx["spec"], GRAPH_DEPTH)])
     (s10c, s10_note), (stormc, storm_note) = cut(s10), cut(storm)
-    # the eager step's time is the comparison's own: no more eager steps
     recs = [compare_programs(torch, ck, ch, "s10", s10c, "crp",
-                             ("dive", "endgame"), reduced=s10_note,
-                             eager_steps=0),
+                             ("dive", "endgame"), reduced=s10_note),
             compare_programs(torch, ck, ch, "storm", stormc, "crp",
-                             ("dive", "endgame"), reduced=storm_note,
-                             eager_steps=0),
+                             ("dive", "endgame"), reduced=storm_note),
             compare_programs(torch, ck, ch, "s10_seqdive", s10c, "pallas",
-                             ("dive",), reduced=s10_note, eager_steps=0)]
+                             ("dive",), reduced=s10_note)]
     launches = {k: sum(r["launches"]["graph"][k] for r in recs)
                 for k in KERNELS}
     for r in recs:
@@ -1759,11 +1509,13 @@ def run_graph(torch, ck, ch, dev):
         if r["path"] != "storm":
             want += NODE_KERNELS if "endgame" in r["stages"] else (
                 "node_blocks",)
-        profs = [p for p in r["replay"].values()
-                 if isinstance(p, dict) and "kernel_nodes" in p]
-        named = {k for p in profs for k in p["hand_kernels_in_replay"]}
-        _require(set(want) <= named
-                 or all(p["kernel_nodes"] is None for p in profs),
+        # what the captures recorded: each replay's launches.  These are
+        # the wrappers' counts at capture time, so the device-side witness
+        # that a replay runs these kernels is compare_programs' bit-equal
+        # ALMState against the eager run, not this gate.
+        named = {k for p in r["launches_per_replay"].values()
+                 if isinstance(p, dict) for k, n in p.items() if n}
+        _require(set(want) <= named,
                  f"graph {r['path']}: kernels missing from the replays: "
                  f"{sorted(set(want) - named)}")
     bench = run_graph_bench(torch, ck, ch)
@@ -1775,7 +1527,6 @@ def run_graph(torch, ck, ch, dev):
 # ---------------------------------------------------------------------------
 
 PATHS_DEPTH = (3, 6, 9)     # the eager comparison: dive, group cap, budget
-PATHS_REPLAYS = 5           # replays timed of each path's endgame program
 DENSE_LANES = 8             # the dense KKT's group, at ts=24 (its O((n+m)^3)
                             # oracle is meant for small horizons)
 TRACE_ITERS = 64            # steps of the traced dive
@@ -1846,8 +1597,7 @@ def run_paths_compare(torch, ck, ch, dev) -> dict:
         rec = compare_programs(
             torch, ck, ch, path, ctx, dive_chain, ("dive", "endgame"),
             end_chain=end_chain, lanes=lanes, phase="paths",
-            reduced=[_depth_note(spec, PATHS_DEPTH)],
-            replays=PATHS_REPLAYS, eager_steps=0, profiled=("endgame",))
+            reduced=[_depth_note(spec, PATHS_DEPTH)])
         _require(all(rec["bits_equal"].values()),
                  f"paths {path}: captured bits differ from eager: "
                  f"{rec['fields']}")
@@ -1926,13 +1676,10 @@ def run_paths_trace(torch, ck, ch, dev) -> dict:
         _, kkt = make_kkts(can, "crp")
         cache = ProgramCache()
         _reset_launch_counts(ck, ch)
-        torch.cuda.synchronize()
-        t0 = time.time()
         res = solve(can, kkt, opts, v0=ctx["v0s"], params=ctx["p1"],
                     keep_state=True, _loop=loop, _programs=cache)
         torch.cuda.synchronize()
-        runs[loop] = dict(res=res, wall=time.time() - t0,
-                          launches=_launch_counts(ck, ch),
+        runs[loop] = dict(res=res, launches=_launch_counts(ck, ch),
                           captures=cache.captures)
     e, g = runs["eager"]["res"], runs["program"]["res"]
     names = ("kkt_err", "mu", "gamma", "delta_w", "constr_viol", "f")
@@ -1945,9 +1692,6 @@ def run_paths_trace(torch, ck, ch, dev) -> dict:
         records_equal=records, state=state,
         launches=dict(eager=runs["eager"]["launches"],
                       graph=runs["program"]["launches"]),
-        wall_s={k: r["wall"] for k, r in runs.items()},
-        ms_per_step={k: 1e3 * r["wall"] / TRACE_ITERS
-                     for k, r in runs.items()},
         captures=runs["program"]["captures"])
     print(json.dumps(rec), flush=True)
     _require(all(records.values())
@@ -1980,12 +1724,8 @@ def run_paths_mission(torch, ck, ch) -> dict:
     legs = []
 
     def leg(mission_type, goal, stitch=None, v0=None):
-        torch.cuda.synchronize()
-        t0 = time.time()
         doc = solve_leg(mission_type, goal, stitch=stitch, v0=v0)
-        torch.cuda.synchronize()
-        legs.append(dict(mission=mission_type, ms=1e3 * (time.time() - t0),
-                         converged=doc["converged"],
+        legs.append(dict(mission=mission_type, converged=doc["converged"],
                          iterations=doc["iterations"],
                          used_warm=doc["used_warm"],
                          cold_retry=doc["cold_retry"],
@@ -1994,10 +1734,8 @@ def run_paths_mission(torch, ck, ch) -> dict:
 
     _reset_launch_counts(ck, ch)
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.time()
     mission = Mission(cfg, FakeAutopilot(), leg_solver=leg)
     traj = mission.run(MISSION_GOAL)
-    wall = time.time() - t0
     launches = _launch_counts(ck, ch)
     first = {}
     for i, x in enumerate(legs):
@@ -2011,8 +1749,7 @@ def run_paths_mission(torch, ck, ch) -> dict:
         aircraft=cfg.aircraft, ts=cfg.ts, chain=cfg.leg_chain,
         ensemble=cfg.leg_ensemble, leg_max_iter=cfg.leg_max_iter,
         goal=list(MISSION_GOAL), legs=legs, log=mission.log,
-        wall_s=wall, points=len(traj), captures=solve_leg.programs.captures,
-        capture_s=solve_leg.programs.capture_s,
+        points=len(traj), captures=solve_leg.programs.captures,
         captures_on_legs=grew, launches=launches,
         kernels_on_path=list(NODE_KERNELS),
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
@@ -2037,126 +1774,16 @@ def run_paths_mission(torch, ck, ch) -> dict:
     return launches
 
 
-def jacobi_profile(torch, dev) -> dict:
-    """The structured KKT's eigen-convexification alone, at a ts=100
-    step's shape (128 x 101 symmetric 11x11 blocks, float32) and captured:
-    ms a replay by the host clock over ``GRAPH_REPLAYS`` replays, then one
-    replay under torch.profiler: device busy time and kernel nodes.  Its
-    operations do not depend on the values."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from tol_tpu_torch.solver.kkt_structured import convexify_blocks
-
-    gen = torch.Generator().manual_seed(0)
-    A = torch.randn(B_LANES, TS + 1, NB, NB, generator=gen).to(dev)
-    A = A + A.mT
-    side = torch.cuda.Stream(dev)
-    side.wait_stream(torch.cuda.current_stream(dev))
-    with torch.cuda.stream(side):
-        convexify_blocks(A)                  # builds the index tensors
-    torch.cuda.current_stream(dev).wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        convexify_blocks(A)
-    torch.cuda.synchronize()
-    t0 = time.time()
-    for _ in range(GRAPH_REPLAYS):
-        graph.replay()
-    torch.cuda.synchronize()
-    replay_ms = 1e3 * (time.time() - t0) / GRAPH_REPLAYS
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        graph.replay()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    rec = dict(phase="paths_jacobi", shape=list(A.shape), dtype="float32",
-               replay_ms=replay_ms,
-               device_busy_ms=busy_ms if busy_ms > 0 else None,
-               kernel_nodes=sum(e.count for e in kernels) if busy_ms > 0
-               else None)
-    print(json.dumps(rec), flush=True)
-    return rec
-
-
 def run_paths(torch, ck, ch, dev) -> dict:
     """The ``paths`` phase.  Returns the launches of its captured runs."""
     total = {k: 0 for k in KERNELS}
-    jacobi_profile(torch, dev)
     for part in (lambda: run_paths_compare(torch, ck, ch, dev),
                  lambda: run_paths_solves(torch, ck, ch, dev),
                  lambda: run_paths_trace(torch, ck, ch, dev),
                  lambda: run_paths_mission(torch, ck, ch)):
-        t0 = time.time()
         for k, n in part().items():
             total[k] += n
-        print(json.dumps(dict(phase="paths_part",
-                              seconds=time.time() - t0)), flush=True)
     return total
-
-
-# ---------------------------------------------------------------------------
-# phase 5: where a solver iteration's time goes
-# ---------------------------------------------------------------------------
-
-def profile_iterations(torch, ck, ch, can, v0s, bodies):
-    """One iteration of each body at 128 lanes (after
-    ``PROFILE_WARM_STEPS`` warm-up iterations from the seeds): host wall, the device's busy time under torch.profiler
-    (sum of kernel durations on the one stream), the hand-written kernels'
-    share of it, the number of kernel launches, and each hand-written
-    kernel's launches in the step."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from tol_tpu_torch.solver.alm import _StepProgram, make_kernel
-    from tol_tpu_torch.solver.kkt_condensed import make_condensed_kkt
-
-    ours = tuple(SYMBOLS.values())
-    out = {}
-    for name, opts, refine, chain, p in bodies:
-        kkt = make_condensed_kkt(can, refine=refine, chain=chain)
-        kern = make_kernel(can, kkt, opts, can.nlp.inst0, v0s)
-        st = kern.init_state(p, p, False)
-        for _ in range(PROFILE_WARM_STEPS):
-            st, _ = kern.substep(st, None, p, p, None)
-        torch.cuda.synchronize()
-        _reset_launch_counts(ck, ch)
-        t0 = time.time()
-        st, _ = kern.substep(st, None, p, p, None)
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-        per_step = {k: v for k, v in _launch_counts(ck, ch).items() if v}
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            st, _ = kern.substep(st, None, p, p, None)
-            torch.cuda.synchronize()
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA]
-        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-        ours_ms = sum(e.self_device_time_total for e in kernels
-                      if any(s in e.key for s in ours)) / 1e3
-        by_kernel = {k: sum(e.self_device_time_total for e in kernels
-                            if _names_kernel(SYMBOLS[k], e.key)) / 1e3
-                     for k in per_step}
-        measured = busy_ms > 0
-        out[name] = dict(
-            wall_ms=1e3 * wall, chain=chain, launches_per_step=per_step,
-            device_busy_ms=busy_ms if measured else None,
-            device_idle_share=(1.0 - busy_ms / (1e3 * wall)) if measured
-            else None,
-            hand_kernels_ms=ours_ms if measured else None,
-            hand_kernels_ms_by_kernel=by_kernel if measured else None,
-            kernel_launches=sum(e.count for e in kernels) if measured else None)
-        # the same step as a captured program: a warm-up step, the capture
-        # and one replay, then the replays profiled
-        prog = _StepProgram(can, kkt, opts, can.nlp.inst0, st, p, None)
-        prog.load(can.nlp.inst0, st, p, None)
-        prog.run()
-        prog.run()
-        out[name]["replayed"] = replay_profile(torch, prog, eager_steps=1)
-    return out
 
 
 def main() -> int:
@@ -2174,106 +1801,46 @@ def main() -> int:
     from tol_tpu_torch.ops import _build
     from tol_tpu_torch.ops import chainkern as ch
     from tol_tpu_torch.ops import crkern as ck
-    from tol_tpu_torch.tools import chain_clock
-    from tol_tpu_torch.utils import stage_timer
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    t_start = time.time()
-    timer = stage_timer()
     try:
-        t0 = time.time()
-        clock_build = chain_clock.start_build()
         built = _build.build()
         for name in built:
             _build.load_library(name)
-        clock_so, _ = chain_clock.load(clock_build)
-        ptxas = _ptxas_by_kernel([report for _, report in built.values()])
         print(json.dumps(dict(
-            phase="build", seconds=time.time() - t0,
+            phase="build",
             libraries={name: path for name, (path, _) in built.items()},
-            ptxas_by_kernel=ptxas)), flush=True)
+            ptxas_by_kernel=_ptxas_by_kernel(
+                [report for _, report in built.values()]))), flush=True)
 
-        t0 = time.time()
-        clock = chain_clock.run(torch, clock_so, ch.K6_GROUP, ch.K6_THREADS,
-                                ch.K7_GROUP, ch.K7_THREADS, ch.K8_GROUP,
-                                ch.K8_THREADS)
-        print(json.dumps(dict(phase="clock", seconds=time.time() - t0,
-                              **clock)), flush=True)
-        fast = clock["fast_ops_vs_ieee"]
-        _require(fast["sqrt_bits_differ"] == 0
-                 and fast["quotient_bits_differ"] == 0,
-                 f"K6's fast square root or quotient differs from IEEE: {fast}")
+        fast = check_fast_ops(torch, dev)
+        records = check_kernels(torch, ck, ch, dev)
+        print(json.dumps(dict(phase="kernels", tolerance_rel=TOL_REL,
+                              fast_ops_vs_ieee=fast,
+                              kernels=list(records.values()))), flush=True)
 
-        t0 = time.time()
-        records = check_kernels(torch, ck, ch, dev, clock["latency_cycles"])
-        shipped = {"chain_factor": [ch.K6_GROUP, ch.K6_THREADS],
-                   "chain_rhs_forward": [ch.K7_GROUP, ch.K7_THREADS],
-                   "chain_back_sub": [ch.K8_GROUP, ch.K8_THREADS]}
-        for name, rec in records.items():
-            rec["ptxas"] = ptxas.get(f"{name}[G={shipped.get(name, [0])[0]}]",
-                                     ptxas.get(name))
-        print(json.dumps(dict(phase="kernels", seconds=time.time() - t0,
-                              tolerance_rel=TOL_REL)), flush=True)
-
-        t0 = time.time()
         sweep = sweep_chain_kernels(torch, ch, dev)
-        print(json.dumps(dict(phase="sweep", seconds=time.time() - t0,
-                              shipped=shipped, **sweep)), flush=True)
+        print(json.dumps(dict(phase="sweep", **sweep)), flush=True)
 
-        t0 = time.time()
         chains, by_path = check_chains(torch, ck, ch, dev)
         by_path = {"chains": by_path}
-        print(json.dumps(dict(phase="chains", seconds=time.time() - t0,
-                              tolerance_rel=TOL_CHAINS, launches=by_path["chains"],
-                              **chains)), flush=True)
-
-        t0 = time.time()
-        with timer("solves"):
-            solve_paths, ctx, s10_v = run_solves(torch, ck, ch, dev)
-        print(json.dumps(dict(phase="solves", seconds=time.time() - t0)),
+        print(json.dumps(dict(phase="chains", tolerance_rel=TOL_CHAINS,
+                              launches=by_path["chains"], **chains)),
               flush=True)
 
-        t0 = time.time()
-        with timer("storm"):
-            solve_paths["storm"], storm_ctx = run_storm(torch, ck, ch, dev)
-        print(json.dumps(dict(phase="storm_total",
-                              seconds=time.time() - t0)), flush=True)
-
-        t0 = time.time()
-        with timer("replan"):
-            solve_paths["replan"] = run_replan(torch, ck, ch, dev)
-        print(json.dumps(dict(phase="replan_total",
-                              seconds=time.time() - t0)), flush=True)
-
-        with timer("cli"):
-            run_cli()
-
-        with timer("bench"):
-            solve_paths["bench"] = run_bench()
-
-        t_new = time.time()
-        with timer("parallel"):
-            solve_paths["parallel"], par = run_parallel(torch, ck, ch, dev)
-        with timer("scaling"):
-            solve_paths["scaling"] = run_scaling(torch, ck, ch)
-        with timer("entry"):
-            run_entry(torch)
-        run_utils(torch, ck, ch, timer, s10_v, par, ctx)
-        print(json.dumps(dict(phase="new_phases_total",
-                              seconds=time.time() - t_new)), flush=True)
-
-        t0 = time.time()
-        with timer("graph"):
-            solve_paths["graph"], _ = run_graph(torch, ck, ch, dev)
-        print(json.dumps(dict(phase="graph_total",
-                              seconds=time.time() - t0)), flush=True)
-        t0 = time.time()
-        with timer("paths"):
-            solve_paths["paths"] = run_paths(torch, ck, ch, dev)
-        print(json.dumps(dict(phase="paths_total",
-                              seconds=time.time() - t0)), flush=True)
+        solve_paths, ctx, s10_v = run_solves(torch, ck, ch, dev)
+        solve_paths["storm"] = run_storm(torch, ck, ch, dev)
+        solve_paths["replan"] = run_replan(torch, ck, ch, dev)
+        run_cli()
+        solve_paths["bench"] = run_bench()
+        solve_paths["parallel"], par = run_parallel(torch, ck, ch, dev)
+        solve_paths["scaling"] = run_scaling(torch, ck, ch)
+        run_entry(torch)
+        run_utils(torch, s10_v, par, ctx)
+        solve_paths["graph"], _ = run_graph(torch, ck, ch, dev)
+        solve_paths["paths"] = run_paths(torch, ck, ch, dev)
         by_path.update(solve_paths)
         # A kernel's launches: those of the solves; K5, which no solve
         # reaches, has those of the chains phase.
@@ -2282,12 +1849,6 @@ def main() -> int:
             rec["launches"] = (sum(c[name] for c in solve_paths.values())
                                or by_path["chains"][name])
             _require(rec["launches"] > 0, f"{name} was never launched")
-
-        t0 = time.time()
-        prof = profile_iterations(torch, ck, ch, *ctx)
-        prof.update(profile_iterations(torch, ck, ch, *storm_ctx))
-        print(json.dumps(dict(phase="profile", seconds=time.time() - t0,
-                              lanes=B_LANES, **prof)), flush=True)
         card = _nvidia_smi("name,power.limit")
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
@@ -2295,7 +1856,6 @@ def main() -> int:
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
-    print(json.dumps(dict(phase="total", seconds=time.time() - t_start)))
     print(card)
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {

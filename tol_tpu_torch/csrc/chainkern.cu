@@ -61,6 +61,9 @@
 // nC is a run-time width (K6: 12 for S10, 14 for G7; K8: one more).  Each
 // entry point launches on the given stream, allocates nothing and returns
 // the CUDA error of the launch (0 on success).
+//
+// fast_ops_check is no solve's: it holds K6's crk::FastOps to the IEEE
+// square root and quotient, bit for bit (chip_smoke.py's kernels phase).
 #include <cuda_runtime.h>
 
 #include <type_traits>
@@ -139,6 +142,46 @@ cudaError_t launch_group(int G, Launch&& launch) {
   }
 }
 
+// FastOps against the library's IEEE sqrtf and quotient on n log-uniform
+// operands each (sqrt: positive, 2^-120 .. 2^120; quotient: signed,
+// 2^-70 .. 2^70, and a zero numerator one time in 64): out[0], out[2] the
+// operands inside FastOps' range whose bits differ, out[1], out[3] how many
+// were inside it.
+__device__ __forceinline__ unsigned hash32(unsigned x) {
+  x ^= x >> 16; x *= 0x7feb352du; x ^= x >> 15; x *= 0x846ca68bu;
+  return x ^ (x >> 16);
+}
+__device__ __forceinline__ float log_uniform(unsigned h, int emax) {
+  const float e = (float)((int)(h % (unsigned)(2 * emax)) - emax);
+  return exp2f(e + (float)(hash32(h) & 0xffffff) / 16777216.0f);
+}
+__global__ void fast_ops_kernel(long n, unsigned long long* __restrict__ out) {
+  unsigned long long c[4] = {0, 0, 0, 0};
+  for (long k = (long)blockIdx.x * blockDim.x + threadIdx.x; k < n;
+       k += (long)gridDim.x * blockDim.x) {
+    const unsigned h = hash32((unsigned)k * 3u + 1u);
+    const float x = log_uniform(h, 120);
+    bool ok = true;
+    const float fs = crk::FastOps::sqrt(x, ok);
+    if (ok) {
+      c[1] += 1;
+      c[0] += __float_as_uint(fs) != __float_as_uint(sqrtf(x));
+    }
+    const unsigned h2 = hash32(h ^ 0x9e3779b9u), h3 = hash32(h2);
+    float a = log_uniform(h2, 70), b = log_uniform(h3, 70);
+    if (h2 & 1u) a = -a;
+    if (h3 & 1u) b = -b;
+    if ((h3 >> 8) % 64u == 0u) a = 0.0f;
+    bool okq = true;
+    const float fq = crk::FastOps::quot(a, b, okq);
+    if (okq && b > 0.0f) {   // pivot divisors are positive
+      c[3] += 1;
+      c[2] += __float_as_uint(fq) != __float_as_uint(a / b);
+    }
+  }
+  for (int i = 0; i < 4; ++i) atomicAdd(out + i, c[i]);
+}
+
 }  // namespace
 
 extern "C" {
@@ -214,6 +257,14 @@ int chain_back_sub(const float* tR, const float* t2, const float* coef, float* x
                                                         B, Tc);
     return cudaGetLastError();
   });
+}
+
+// FastOps against IEEE on n operands of each kind; out: four zeroed
+// counters (see fast_ops_kernel).
+int fast_ops_check(long n, unsigned long long* out, void* stream) {
+  if (n < 1) return (int)cudaErrorInvalidValue;
+  fast_ops_kernel<<<264, 256, 0, (cudaStream_t)stream>>>(n, out);
+  return (int)cudaGetLastError();
 }
 
 const char* kernel_error_string(int code) {

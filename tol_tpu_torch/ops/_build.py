@@ -40,6 +40,7 @@ _SIGNATURES = {
         "chain_factor": [_P] * 7 + [_I, _I, _L, _I, _I, _P],
         "chain_rhs_forward": [_P] * 6 + [_I, _I, _L, _I, _I, _P],
         "chain_back_sub": [_P] * 4 + [_I, _I, _L, _I, _I, _P],
+        "fast_ops_check": [_L, _P, _P],
     },
     "nodekern": {
         "node_blocks": [_P, _L] * 3 + [_P, _P, _L, _I, _I] + [_P] * 4,
