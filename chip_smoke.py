@@ -30,7 +30,8 @@ Phases, each of which must pass (any failure exits non-zero and prints no
              lanes, border widths 12 and 14; K9's ``node_blocks`` and
              ``defect_blocks`` at 128 lanes of S10 / tempest / wind model 1
              at ts=100, float32, against the float64 torch.func transforms
-             (``TOL_NODE``).  Each case includes a lane with an indefinite
+             (``TOL_NODE``), and the same under the storm's grid (wind
+             model 3 at order 2: K9's grid specialisation, ``[grid]``).  Each case includes a lane with an indefinite
              pivot (for K9, a NaN node) that must come out NaN in that lane
              only.  K5-K9 (``ROOFLINE_KERNELS``) are then timed: one
              launch at the first shape, 20 warm runs under torch.profiler,
@@ -66,8 +67,8 @@ Phases, each of which must pass (any failure exits non-zero and prints no
              tempest / wind model 3 on the demo storm grid (order 2,
              interp "auto": separable), a 4-trial endgame, group cap 175,
              128 lanes, gated against ``tests/golden_storm_ts100.npy``
-             (>= 90% of the lanes must pass); K9 must not run (wind
-             model 3 keeps the transforms).
+             (>= 90% of the lanes must pass); K9's grid specialisation
+             must take the node blocks and the refinement's.
    replan  — bench.py config 4 through the mission layer: a cold G7 /
              skywalker leg of 128 seed lanes in 48-iteration slices, then
              ``REPLANS`` goals drawn as bench.py draws them, each
@@ -108,7 +109,7 @@ Phases, each of which must pass (any failure exits non-zero and prints no
              ALMState field after each stage, equal bits or the largest
              difference; the launches of both runs; per program the hand
              kernels its capture recorded (``_StepProgram.launches``: K1-K3,
-             K6-K8 in the sequential dive, K9 on s10: each must appear), and
+             K6-K8 in the sequential dive, K9: each must appear), and
              peak memory.  Then bench config 1 at full size captured
              (``bench_torch``'s solver, draws and gate in this process:
              1024 lanes, groups and drain chunks of 128), gated at
@@ -123,7 +124,7 @@ Phases, each of which must pass (any failure exits non-zero and prints no
              ``PATHS_DEPTH`` eagerly and captured: every ALMState field
              bit-equal, equal launches, and exactly the hand kernels of
              the path launched (K1-K3 for the crp paths, and K9 for those
-             under wind model 1); the dense KKT at ts=24 and 8 lanes, the rest at
+             under wind model 1 or the storm's grid at order 2); the dense KKT at ts=24 and 8 lanes, the rest at
              ts=100 and 128.  Then full-width solves (128 lanes, ts=100,
              bench.py's constants): cr, onehot and gather gated as s10
              and storm are (>= 90%), scan, spike and the structured KKT
@@ -224,20 +225,25 @@ SYMBOLS = {"crp_factor_fwd_pass": "factor_fwd_pass_kernel",
            "node_blocks": "node_blocks_kernel",
            "defect_blocks": "defect_blocks_kernel"}
 CHAIN_KERNELS = ("chain_factor", "chain_rhs_forward", "chain_back_sub")
-# K9: a Newton step's node blocks under wind models 0 and 1, and the dual
-# refinement's Jacobian blocks (endgame and drain: dual_refine_k > 0)
+# K9: a Newton step's node blocks under wind models 0 and 1 and the
+# storm's grid at order 2, and the dual refinement's Jacobian blocks
+# (endgame and drain: dual_refine_k > 0)
 NODE_KERNELS = ("node_blocks", "defect_blocks")
+# the kernels phase's cases of K9's grid specialisation
+NODE_GRID_CASES = ("node_blocks[grid]", "defect_blocks[grid]")
 # K9 against the float64 transforms at the same float32 points: float32's
 # rounding of a few thousand operations a node (about 4e-7 measured)
 TOL_NODE = 1e-5
 # K9's floating-point operations a node (nk::node_blocks over a counting
 # number type on the host; constants included, so an upper count): with the
-# Hessian, and A and d alone
-NODE_FLOPS = {"node_blocks": 6398, "defect_blocks": 1621}
+# Hessian, and A and d alone; under the grid, the stencil sums included
+NODE_FLOPS = {"node_blocks": 6398, "defect_blocks": 1621,
+              "node_blocks[grid]": 9554, "defect_blocks[grid]": 2611}
 # The kernels timed against their bounds: K5, K6-K8 and K9, which run on
 # no benchmarked path (K5-K8) or whose bound no benchmark metric reads (K9).
 # K1-K3's roofline is the benchmark's kernels.crp_roofline.
-ROOFLINE_KERNELS = ("crp_factor_pass",) + CHAIN_KERNELS + NODE_KERNELS
+ROOFLINE_KERNELS = (("crp_factor_pass",) + CHAIN_KERNELS + NODE_KERNELS
+                    + NODE_GRID_CASES)
 # Launch shapes of the sweep: (lanes per thread block, threads per block).
 SWEEP = {"chain_factor": [(G, th) for G in (1, 2, 4, 8)
                           for th in (64, 128, 256) if th > 16 * G],
@@ -297,11 +303,15 @@ def _ptxas_by_kernel(reports):
             group = re.search(r"ILi(\d+)E", ln)
             if cur and group:
                 cur = f"{cur}[G={group.group(1)}]"
-            elif cur and "IdE" in ln:     # K9's double instantiation
+            if cur and "4GridI" in ln:    # K9's grid specialisation
+                cur = f"{cur}[grid]"
+            if cur and not group and "IdE" in ln:   # K9 in double
                 cur = f"{cur}[f64]"
             if cur:
                 out[cur] = {}
-        elif cur and "spill stores" in ln:
+        elif cur and "spill stores" in ln and "spill_stores" not in out[cur]:
+            # the entry's own properties come first; a helper's (the
+            # double trig reduction's) follow
             words = ln.split()
             out[cur]["spill_stores"] = int(words[words.index("spill") - 2])
             out[cur]["spill_loads"] = int(words[-4])
@@ -504,26 +514,43 @@ def _node_cases(torch, gen, dev):
     """K9's two entry points at the solves' shape: S10 / tempest, wind model
     1, scaled, B=128 lanes of T=100 (12928 nodes; A and d of the 12800 with
     a defect), float32, at points moved off the seed trajectory, against
-    the torch.func transforms in float64 at the same points.  The solver
-    adds the node cost's Hessian beside the launch, so ``plain`` takes it
-    out of the transforms' Hn.  The NaN lane: one node of lane ``col`` is
-    NaN."""
+    the torch.func transforms in float64 at the same points; ``[grid]`` the
+    same under the storm's wind (model 3 on the demo storm grid at order 2:
+    K9's grid specialisation).  The solver adds the node cost's Hessian
+    beside the launch, so ``plain`` takes it out of the transforms' Hn.
+    The NaN lane: one node of lane ``col`` is NaN."""
+    cases = _node_wind_cases(torch, gen, dev, 1)
+    cases.update({f"{k}[grid]": c for k, c in _node_wind_cases(
+        torch, gen, dev, 3).items()})
+    return cases
+
+
+def _node_wind_cases(torch, gen, dev, model):
+    """_node_cases' two cases under wind model 1 or 3."""
     import dataclasses
 
     from tol_tpu_torch.api import make_problem
+    from tol_tpu_torch.io.storm import make_demo_storm_grid
+    from tol_tpu_torch.models.wind import WindConfig
     from tol_tpu_torch.ops import nodekern
     from tol_tpu_torch.solver.canonical import (Scaling, canonicalize,
                                                 kernel_args)
     from tol_tpu_torch.solver.kkt_condensed import derivative_blocks
 
-    mk = lambda dtype: make_problem("S10", aircraft="tempest", ts=TS,
-                                    wind_model=1, dtype=dtype, device=dev)
+    def mk(dtype):
+        wind = None if model == 1 else WindConfig(
+            model=3, order=2, interp="separable", east0=17400.0,
+            north0=25800.0, up0=200.0,
+            grid=make_demo_storm_grid(dtype=dtype, device=dev))
+        return make_problem("S10", aircraft="tempest", ts=TS,
+                            wind_model=model, wind=wind, dtype=dtype,
+                            device=dev)
     c32 = canonicalize(mk(torch.float32), scaling="auto")
     c64 = canonicalize(mk(torch.float64),
                        Scaling(*[t.double() for t in c32.scaling]))
     # the float64 problem by the transforms
     c64 = dataclasses.replace(c64, nlp=dataclasses.replace(
-        c64.nlp, affine_wind_model=None))
+        c64.nlp, affine_wind_model=None, grid_wind=False))
     nlp64, inst64 = c64.nlp, c64.nlp.inst0
     blocks64, _, jac64, _ = derivative_blocks(c64)
     par, fld = kernel_args(c32)(c32.nlp.inst0)
@@ -534,6 +561,8 @@ def _node_cases(torch, gen, dev):
     Z, dt, _ = c32.split(v)
     Z, dt = Z.contiguous(), dt.contiguous()
     y = torch.randn(B_LANES, TS, NS_DEFECT, generator=gen, device=dev)
+    # the wind's index tables made outside the transforms
+    nlp64.all_defects(Z.double(), dt.double())
 
     def node(Z, dt, y):
         Hn, A, d = nodekern.node_blocks(Z, dt, y, par, fld)
@@ -575,6 +604,13 @@ def _bounds() -> dict:
     nodes = B_LANES * (TS + 1)
     out_h = (NB + 1) ** 2 + NS_DEFECT * NB + NS_DEFECT
     out_j = NS_DEFECT * NB + NS_DEFECT
+    node_bytes = fl * (nodes * (NB + out_h) + B_LANES
+                       + B_LANES * TS * NS_DEFECT + nodekern.PAR_FLOATS)
+    defect_bytes = fl * (B_LANES * TS * (NB + out_j) + B_LANES
+                         + nodekern.PAR_FLOATS)
+    # the grid: the demo storm grid's three components (8 x 8 x 6), origin,
+    # spacing and live mask, each read once
+    grid_bytes = fl * (3 * 8 * 8 * 6 + 9)
     return {
         # K5: level 0 read once (each odd pivot's lower triangle, even
         # blocks whole, O), every level's Minv, OL, OR and the root's
@@ -598,13 +634,14 @@ def _bounds() -> dict:
             B_LANES * T * (2 * NB * nC + 2 * n2 + NB)),
         # K9: z and the outputs of every node, the lanes' dt, the
         # multipliers of the T defects, the 17 airframe and scale numbers
-        "node_blocks": (
-            fl * (nodes * (NB + out_h) + B_LANES + B_LANES * TS * NS_DEFECT
-                  + nodekern.PAR_FLOATS),
-            nodes * NODE_FLOPS["node_blocks"]),
-        "defect_blocks": (
-            fl * (B_LANES * TS * (NB + out_j) + B_LANES + nodekern.PAR_FLOATS),
-            B_LANES * TS * NODE_FLOPS["defect_blocks"]),
+        "node_blocks": (node_bytes, nodes * NODE_FLOPS["node_blocks"]),
+        "defect_blocks": (defect_bytes,
+                          B_LANES * TS * NODE_FLOPS["defect_blocks"]),
+        "node_blocks[grid]": (node_bytes + grid_bytes,
+                              nodes * NODE_FLOPS["node_blocks[grid]"]),
+        "defect_blocks[grid]": (
+            defect_bytes + grid_bytes,
+            B_LANES * TS * NODE_FLOPS["defect_blocks[grid]"]),
     }
 
 
@@ -632,7 +669,7 @@ def _roofline(torch, case, name, counts) -> dict:
     """One kernel's device time against its bound."""
     n_bytes, flops = counts
     device_ms = _device_ms(torch, lambda: case["kernel"](*case["inputs"][0]),
-                           SYMBOLS[name])
+                           SYMBOLS[name.split("[")[0]])
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOP_PER_S * 1e3
     bound_ms = max(t_bytes, t_ops)
@@ -700,7 +737,7 @@ def check_kernels(torch, ck, ch, dev):
         if name == "chain_factor":
             _require(not bool(torch.isnan(got[0][:2]).any()),
                      "chain_factor: NaN before the indefinite block")
-        source, replaces = KERNELS[name]
+        source, replaces = KERNELS[name.split("[")[0]]
         records[name] = dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=0, max_abs_err=abs_err, max_rel_err=rel_err,
@@ -1023,9 +1060,9 @@ def run_storm(torch, ck, ch, dev):
     storm = make_mission(torch, "storm", STORM_LANES, dev)
     rec, launches, _ = run_solve(torch, ck, ch, "storm", storm, STORM_LANES,
                                  "crp", CR_PASS_KERNELS)
-    # wind model 3 is not affine in position: the transforms take its blocks
-    _require(not any(launches[k] for k in NODE_KERNELS),
-             f"storm: K9 launched under wind model 3: {launches}")
+    # K9's grid specialisation takes the node blocks and the refinement's
+    _require(all(launches[k] for k in NODE_KERNELS),
+             f"storm: K9 not launched under the storm grid: {launches}")
     _require(rec["gated_pass_with_cost_gap"] >= 0.9 * STORM_LANES,
              f"storm gate: {rec['gated_pass_with_cost_gap']}/{STORM_LANES} "
              "lanes pass (< 90%)")
@@ -1502,13 +1539,12 @@ def run_graph(torch, ck, ch, dev):
                 for k in KERNELS}
     for r in recs:
         # the dive's chain, and the endgame's (crp) where it ran
-        # and K9 under s10's wind model 1 (A, d in the endgame's refinement)
+        # and K9 (A, d in the endgame's refinement)
         want = ((CHAIN_KERNELS if r["dive_chain"] == "pallas"
                  else CR_PASS_KERNELS)
-                + (CR_PASS_KERNELS if "endgame" in r["stages"] else ()))
-        if r["path"] != "storm":
-            want += NODE_KERNELS if "endgame" in r["stages"] else (
-                "node_blocks",)
+                + (CR_PASS_KERNELS if "endgame" in r["stages"] else ())
+                + (NODE_KERNELS if "endgame" in r["stages"]
+                   else ("node_blocks",)))
         # what the captures recorded: each replay's launches.  These are
         # the wrappers' counts at capture time, so the device-side witness
         # that a replay runs these kernels is compare_programs' bit-equal
@@ -1535,8 +1571,9 @@ TRACE_ITERS = 64            # steps of the traced dive
 # tests/make_mission_golden.py)
 MISSION_GOAL = (275.0, 170.0, 0.0, 100.0)
 # path: (problem, dive chain, endgame chain, the hand kernels it launches);
-# S10 is on wind model 1, so K9 takes its node blocks (the dense KKT takes
-# its Hessian whole, so there only the endgame's refinement launches K9)
+# S10 is on wind model 1 and the storm's lowerings on the grid at order 2,
+# so K9 takes their node blocks (the dense KKT takes its Hessian whole, so
+# there only the endgame's refinement launches K9)
 PATHS = {
     "structured": ("S10", "structured", "structured", NODE_KERNELS),
     "dense": ("S10_ts24", "dense", "dense", ("defect_blocks",)),
@@ -1546,8 +1583,10 @@ PATHS = {
     "wind2": ("wind2", "crp", "crp", CR_PASS_KERNELS),
     "wind4": ("wind4", "crp", "crp", CR_PASS_KERNELS),
     "wind5": ("wind5", "crp", "crp", CR_PASS_KERNELS),
-    "storm_onehot": ("storm_onehot", "crp", "crp", CR_PASS_KERNELS),
-    "storm_gather": ("storm_gather", "crp", "crp", CR_PASS_KERNELS),
+    "storm_onehot": ("storm_onehot", "crp", "crp",
+                     CR_PASS_KERNELS + NODE_KERNELS),
+    "storm_gather": ("storm_gather", "crp", "crp",
+                     CR_PASS_KERNELS + NODE_KERNELS),
 }
 # the paths solved at full width (the dense KKT is the oracle of small
 # horizons: its eager comparison at ts=24 is its whole share)

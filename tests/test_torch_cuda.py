@@ -431,6 +431,115 @@ def test_cuda_node_blocks_match_the_transforms(cuda_device, mission, aircraft):
         nodekern.defect_blocks(Z.cpu(), dt.cpu(), par.cpu(), fld)
 
 
+def _storm_wind(dtype, device, **grid_args):
+    """Wind model 3 on the demo storm grid at order 2 (origin and spacing
+    in ``dtype``), the storm cell's local origin."""
+    from tol_tpu_torch.io.storm import make_demo_storm_grid
+    from tol_tpu_torch.models.wind import WindConfig
+
+    return WindConfig(model=3, order=2, east0=17400.0, north0=25800.0,
+                      up0=200.0, grid=make_demo_storm_grid(
+                          dtype=dtype, device=device, **grid_args))
+
+
+@pytest.mark.cuda
+def test_cuda_grid_node_blocks_match_the_transforms(cuda_device):
+    """K9's grid specialisation at the storm cell's width (S10 / tempest on
+    the demo storm grid at order 2, scaled, 128 lanes of ts=100) against
+    the float64 transforms at the same points on the card: Hn, A, d of one
+    node_blocks launch and A, d of one defect_blocks launch, float32 and
+    float64, each within 1e-4 of its block's largest entry (float32's
+    rounding of the stencil sums and jets; float64 to 1e-12).  Then both
+    launches captured in one CUDA graph: the grid refilled in place (other
+    samples, the origin moved), the replay's blocks follow the new field,
+    as the transforms give them there."""
+    import dataclasses
+
+    from tol_tpu_torch.api import make_problem
+    from tol_tpu_torch.io.storm import make_demo_storm_grid
+    from tol_tpu_torch.ops import nodekern
+    from tol_tpu_torch.solver.canonical import (Scaling, canonicalize,
+                                                closed_form_blocks)
+    from tol_tpu_torch.solver.kkt_condensed import derivative_blocks
+
+    nlp = lambda dt: make_problem("S10", "tempest", ts=100, wind_model=3,
+                                  wind=_storm_wind(dt, cuda_device), dtype=dt,
+                                  device=cuda_device)
+    c32 = canonicalize(nlp(torch.float32), "auto")
+    c64 = canonicalize(nlp(torch.float64),
+                       Scaling(*[t.double() for t in c32.scaling]))
+    assert closed_form_blocks(c32.nlp) and closed_form_blocks(c64.nlp)
+    transforms = dataclasses.replace(c64, nlp=dataclasses.replace(
+        c64.nlp, grid_wind=False))
+    assert not closed_form_blocks(transforms.nlp)
+
+    rng = np.random.default_rng(12)
+    B, T = 128, 100
+    lb, ub, fixed = c32.bounds(c32.nlp.inst0)
+    v = c32.initial_point()[None] + torch.as_tensor(
+        0.1 * rng.standard_normal((B, c32.n)), dtype=torch.float32,
+        device=cuda_device)
+    v = torch.where(fixed, lb, torch.minimum(torch.maximum(v, lb), ub))
+    y = torch.as_tensor(rng.standard_normal((B, T, 8)), dtype=torch.float32,
+                        device=cuda_device)
+    Zw, dtw, _ = c64.split(v.double())
+    inst_t = transforms.nlp.inst0
+    transforms.nlp.all_defects(Zw, dtw, inst_t)   # index tables, untransformed
+    nb_t, _, dj_t, _ = derivative_blocks(transforms)
+
+    def want():
+        return nb_t(Zw, dtw, y.double(), inst_t) + dj_t(Zw, dtw, inst_t)
+
+    def rel(got, ref):
+        return [((g.double() - w).abs().max() / w.abs().max()).item()
+                for g, w in zip(got, ref)]
+
+    ref = want()
+    for can, tol in ((c32, 1e-4), (c64, 1e-12)):
+        Z, dt, _ = can.split(v.to(can.nlp.inst0.z_lo.dtype))
+        n0, j0 = nodekern.node_blocks.launches, nodekern.defect_blocks.launches
+        nb, _, dj, _ = derivative_blocks(can)
+        got = nb(Z, dt, y.to(Z.dtype), can.nlp.inst0) + dj(Z, dt,
+                                                           can.nlp.inst0)
+        torch.cuda.synchronize()
+        assert (nodekern.node_blocks.launches,
+                nodekern.defect_blocks.launches) == (n0 + 1, j0 + 1)
+        assert all(g.dtype == Z.dtype and g.shape == w.shape
+                   for g, w in zip(got, ref))
+        assert max(rel(got, ref)) < tol, (Z.dtype, rel(got, ref))
+
+    # captured: both launches in one graph, then the grid refilled in place
+    Z, dt, _ = c32.split(v)
+    Z = Z.contiguous()
+    inst = c32.nlp.inst0
+    nb, _, dj, _ = derivative_blocks(c32)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        nb(Z, dt, y, inst)
+        dj(Z, dt, inst)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = nb(Z, dt, y, inst) + dj(Z, dt, inst)
+    graph.replay()
+    torch.cuda.synchronize()
+    before = [t.clone() for t in out]
+    assert max(rel(before, ref)) < 1e-4
+    moved = dict(origin=(17040.0, 25470.0, 10.0), vortex_v=4.0,
+                 thermal_w=-1.5)
+    for grid, dtype in ((inst.wind.grid, torch.float32),
+                        (inst_t.wind.grid, torch.float64)):
+        new = make_demo_storm_grid(dtype=dtype, device=cuda_device, **moved)
+        for old, fresh in zip(grid, new):
+            old.copy_(fresh)
+    graph.replay()
+    torch.cuda.synchronize()
+    ref = want()
+    assert max(rel(out, ref)) < 1e-4, rel(out, ref)
+    assert max(rel(before, ref)) > 1e-2     # the field did move
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("chain", ["cr", "structured"])
 def test_cuda_float64_solve_takes_the_kernel(cuda_device, chain):

@@ -1,12 +1,15 @@
 """The closed-form collocation node blocks (``ops/nodekern.py``, kernel K9).
 
 The kernel's per-node arithmetic (``csrc/nodekern_block.cuh``, the same
-``nk::node_at`` the CUDA kernel runs for each node) is built for the host
-with g++ and held, in float64 and in float32, to the ``torch.func``
-transforms that take the same blocks on the CPU (``solver/kkt_condensed.py``
-``derivative_blocks``, ``solver/canonical.py`` ``constraint_jac_blocks``);
-the missions' closed-form node-cost Hessians to ``torch.func``; and the
-solver's choice between kernel and transforms to what the problem shows.
+``nk::node_at`` the CUDA kernel runs for each node, under the affine wind
+and under the gridded storm field) is built for the host with g++ and held,
+in float64 and in float32, to the ``torch.func`` transforms that take the
+same blocks on the CPU (``solver/kkt_condensed.py`` ``derivative_blocks``,
+``solver/canonical.py`` ``constraint_jac_blocks``); the grid's stencil at
+positions that stress it (ties, nodes, every face outside, a masked
+component); the missions' closed-form node-cost Hessians to ``torch.func``;
+and the solver's choice between kernel and transforms to what the problem
+shows.
 Port only: this file imports neither JAX nor the JAX package.  The card's
 test of both entry points is in ``tests/test_torch_cuda.py``.
 """
@@ -24,6 +27,7 @@ import torch
 from torch.func import hessian
 
 from tol_tpu_torch.api import make_problem
+from tol_tpu_torch.io.storm import make_demo_storm_grid
 from tol_tpu_torch.models.wind import WindConfig, affine_wind
 from tol_tpu_torch.ops import nodekern
 from tol_tpu_torch.problems import g7, s10
@@ -46,11 +50,10 @@ _SHIM = r"""
 
 // every node of B lanes through nk::node_at, its rows scattered as the
 // kernel's copy-out leaves them
-template <typename T>
+template <typename T, typename Fld>
 static void run(const T* Z, long ldz, const T* dt, long lddt, const T* Y,
-                long ldy, const T* par, const double* field, long B, int npl,
+                long ldy, const T* par, const Fld& F, long B, int npl,
                 int Tn, int hess, T* Hn, T* A, T* d) {
-  const nk::Field<T> F = nk::make_field<T>(field);
   T out[nk::out_floats(true)];
   for (long g = 0; g < B * npl; ++g) {
     const T* o = out;
@@ -73,15 +76,35 @@ void h_blocks(const double* Z, long ldz, const double* dt, long lddt,
               const double* Y, long ldy, const double* par,
               const double* field, long B, int npl, int Tn, int hess,
               double* Hn, double* A, double* d) {
-  run<double>(Z, ldz, dt, lddt, Y, ldy, par, field, B, npl, Tn, hess, Hn, A,
-              d);
+  run(Z, ldz, dt, lddt, Y, ldy, par, nk::make_field<double>(field), B, npl,
+      Tn, hess, Hn, A, d);
 }
 void f_blocks(const float* Z, long ldz, const float* dt, long lddt,
               const float* Y, long ldy, const float* par, const double* field,
               long B, int npl, int Tn, int hess, float* Hn, float* A,
               float* d) {
-  run<float>(Z, ldz, dt, lddt, Y, ldy, par, field, B, npl, Tn, hess, Hn, A,
-             d);
+  run(Z, ldz, dt, lddt, Y, ldy, par, nk::make_field<float>(field), B, npl,
+      Tn, hess, Hn, A, d);
+}
+void h_grid(const double* Z, long ldz, const double* dt, long lddt,
+            const double* Y, long ldy, const double* par, const double* c,
+            const float* u, const float* v, const float* w,
+            const double* origin, const double* spacing, const float* live,
+            int nx, int ny, int nz, long B, int npl, int Tn, int hess,
+            double* Hn, double* A, double* d) {
+  run(Z, ldz, dt, lddt, Y, ldy, par,
+      nk::make_grid<double>(c, u, v, w, origin, spacing, live, nx, ny, nz), B,
+      npl, Tn, hess, Hn, A, d);
+}
+void f_grid(const float* Z, long ldz, const float* dt, long lddt,
+            const float* Y, long ldy, const float* par, const double* c,
+            const float* u, const float* v, const float* w,
+            const float* origin, const float* spacing, const float* live,
+            int nx, int ny, int nz, long B, int npl, int Tn, int hess,
+            float* Hn, float* A, float* d) {
+  run(Z, ldz, dt, lddt, Y, ldy, par,
+      nk::make_grid<float>(c, u, v, w, origin, spacing, live, nx, ny, nz), B,
+      npl, Tn, hess, Hn, A, d);
 }
 }
 """
@@ -90,7 +113,7 @@ void f_blocks(const float* Z, long ldz, const float* dt, long lddt,
 @pytest.fixture(scope="module")
 def host_nodekern(tmp_path_factory):
     """``nk::node_at`` over every node, built with g++ (float64 ``h_``,
-    float32 ``f_``)."""
+    float32 ``f_``; ``_blocks`` the affine wind, ``_grid`` the grid)."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("g++ not found")
@@ -105,23 +128,55 @@ def host_nodekern(tmp_path_factory):
     P, L, I = ctypes.c_void_p, ctypes.c_long, ctypes.c_int
     for fn in (so.h_blocks, so.f_blocks):
         fn.argtypes = [P, L] * 3 + [P, P, L, I, I, I, P, P, P]
+    for fn in (so.h_grid, so.f_grid):
+        fn.argtypes = [P, L] * 3 + [P] * 8 + [I] * 3 + [L, I, I, I, P, P, P]
     return so
 
 
 def _host_blocks(so, Z, dt, y, par, fld, hess):
     """The host build over Z (B, T+1, 11) as the kernel's wrappers take it:
     with ``hess`` every node's (Hn, A, d) (nodekern.node_blocks), else A, d
-    of nodes 0..T-1 (nodekern.defect_blocks)."""
+    of nodes 0..T-1 (nodekern.defect_blocks); ``fld`` from nodekern.field
+    or nodekern.grid_field."""
     B, T = Z.shape[0], Z.shape[1] - 1
     npl = T + 1 if hess else T
     new = lambda *s: torch.zeros(B, npl, *s, dtype=Z.dtype)
     Hn, A, d = new(12, 12), new(8, 11), new(8)
-    fn = so.h_blocks if Z.dtype == torch.float64 else so.f_blocks
+    f64 = Z.dtype == torch.float64
     Y = y if hess else Z
+    if isinstance(fld, nodekern.GridField):
+        fn = so.h_grid if f64 else so.f_grid
+        keep = [fld.origin.to(Z.dtype), fld.spacing.to(Z.dtype)]
+        wind = (fld.consts, fld.u.data_ptr(), fld.v.data_ptr(),
+                fld.w.data_ptr(), keep[0].data_ptr(), keep[1].data_ptr(),
+                fld.live.data_ptr(), *fld.u.shape)
+    else:
+        fn = so.h_blocks if f64 else so.f_blocks
+        wind = (fld,)
     fn(Z.data_ptr(), Z.stride(0), dt.data_ptr(), dt.stride(0), Y.data_ptr(),
-       Y.stride(0), par.data_ptr(), fld, B, npl, T, int(hess), Hn.data_ptr(),
-       A.data_ptr(), d.data_ptr())
+       Y.stride(0), par.data_ptr(), *wind, B, npl, T, int(hess),
+       Hn.data_ptr(), A.data_ptr(), d.data_ptr())
     return (Hn, A, d) if hess else (A, d)
+
+
+def _storm(order=2, grid=True, live=None, dtype=torch.float64):
+    """Wind model 3 on the demo storm grid (origin and spacing in ``dtype``;
+    all three components live, or ``live``), the storm cell's local
+    origin."""
+    g = make_demo_storm_grid(dtype=dtype, device="cpu") if grid else None
+    if live is not None:
+        g = g._replace(live=torch.tensor(live, dtype=torch.float32))
+    return WindConfig(model=3, grid=g, order=order, east0=17400.0,
+                      north0=25800.0, up0=200.0)
+
+
+def _wind(model):
+    """The problem's wind config and the kernel's wind for model 0, 1 (the
+    affine field) or 3 (the demo storm grid at order 2)."""
+    cfg = _storm() if model == 3 else WindConfig(model=model)
+    fld = (nodekern.grid_field(cfg) if model == 3 else nodekern.field(
+        *affine_wind(cfg)))
+    return cfg, fld
 
 
 # physical amplitude of the noise on each node variable: x, y, z (m), Va,
@@ -151,39 +206,105 @@ def _rel(got, want):
     return ((got.double() - want).abs().max() / want.abs().max()).item()
 
 
+def _compare(so, can, v, y, fld, dtype):
+    """The host-built routine's blocks at the points ``v`` (B, n), ``y``
+    (B, T, 8), rounded to ``dtype``, against the float64 transforms there
+    -> {block: relative max-norm error}: Hn (with the node cost's
+    closed-form Hessian added, as the solver adds it), A and d of
+    node_blocks, A and d of defect_blocks, each against its block's largest
+    entry; under the grid also the rows of Hn and the columns of A in p,
+    against their own largest entry."""
+    nlp, inst = can.nlp, can.nlp.inst0
+    T = nlp.T
+    v, y = v.to(dtype).double(), y.to(dtype).double()   # the point in dtype
+    Z, dt, _ = can.split(v)
+    nlp.all_defects(Z, dt, inst)     # the wind's index tables, untransformed
+    node_blocks, _, defect_jac, _ = derivative_blocks(can)
+    want = node_blocks(Z, dt, y, inst) + defect_jac(Z, dt, inst)
+
+    sc = can.scaling if can.scaling is not None else unit_scaling(nlp)
+    par = nodekern.params(inst.aircraft, sc.d_z, sc.d_dt).to(dtype)
+    Zc, dtc = can.split(v.to(dtype))[:2]
+    Hn, A, d = _host_blocks(so, Zc, dtc, y.to(dtype), par, fld, True)
+    Hn[..., :11, :11] += nlp.node_cost_hess(Z, dt[:, None], inst).to(dtype)
+    got = (Hn, A[:, :T], d[:, :T]) + _host_blocks(so, Zc, dtc, None, par, fld,
+                                                  False)
+    names = ("Hn", "A", "d", "A (jac)", "d (jac)")
+    for name, g, w in zip(names, got, want):
+        assert g.shape == w.shape, name
+    err = {name: _rel(g, w) for name, g, w in zip(names, got, want)}
+    if isinstance(fld, nodekern.GridField):
+        err["Hn (p rows)"] = _rel(got[0][..., :3, :], want[0][..., :3, :])
+        err["A (p columns)"] = _rel(got[1][..., :3], want[1][..., :3])
+    return err
+
+
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("scaling", ["auto", None])
-@pytest.mark.parametrize("wind", [0, 1])
+@pytest.mark.parametrize("wind", [0, 1, 3])
 @pytest.mark.parametrize("mission,aircraft", [("S10", "tempest"),
                                               ("G7", "skywalker")])
 def test_node_blocks_match_the_transforms(host_nodekern, mission, aircraft,
                                           wind, scaling, dtype):
     """Both entry points of the host-built kernel routine at 3 lanes x
-    (TS+1) nodes against the float64 transforms at the same points: Hn
-    (with the node cost's closed-form Hessian added, as the solver adds
-    it), A and d of node_blocks, A and d of defect_blocks; each to TOL of
-    its block's largest entry."""
+    (TS+1) nodes against the float64 transforms at the same points, under
+    the affine winds and under the demo storm grid at order 2: every block
+    to TOL of its largest entry."""
+    cfg, fld = _wind(wind)
     can = canonicalize(make_problem(mission, aircraft, ts=TS, wind_model=wind,
-                                    device="cpu"), scaling)
-    nlp, inst = can.nlp, can.nlp.inst0
+                                    wind=cfg, device="cpu"), scaling)
     v, y = _points(can, 3, seed=wind + 2 * (scaling is None))
-    v, y = v.to(dtype).double(), y.to(dtype).double()   # the point in dtype
-    Z, dt, _ = can.split(v)
-    node_blocks, _, defect_jac, _ = derivative_blocks(can)
-    want = node_blocks(Z, dt, y, inst) + defect_jac(Z, dt, inst)
+    for name, err in _compare(host_nodekern, can, v, y, fld, dtype).items():
+        assert err < TOL[dtype], (name, err)
 
-    sc = can.scaling if scaling else unit_scaling(nlp)
-    par = nodekern.params(inst.aircraft, sc.d_z, sc.d_dt).to(dtype)
-    fld = nodekern.field(*affine_wind(dataclasses.replace(inst.wind,
-                                                          model=wind)))
-    Zc, dtc = can.split(v.to(dtype))[:2]
-    Hn, A, d = _host_blocks(host_nodekern, Zc, dtc, y.to(dtype), par, fld, True)
-    Hn[..., :11, :11] += nlp.node_cost_hess(Z, dt[:, None], inst).to(dtype)
-    got = (Hn, A[:, :TS], d[:, :TS]) + _host_blocks(host_nodekern, Zc, dtc,
-                                                    None, par, fld, False)
-    for name, g, w in zip(("Hn", "A", "d", "A (jac)", "d (jac)"), got, want):
-        assert g.shape == w.shape, name
-        assert _rel(g, w) < TOL[dtype], (name, _rel(g, w))
+
+def _storm_positions(kind):
+    """(P, 3) NED positions (the storm cell's local origin) of one kind
+    against the demo grid (origin (17000, 25500, 0) ENU, 150 m spacing,
+    8 x 8 x 6 nodes): ``inside`` cells; ``ties``, every axis on a half-cell
+    tie, where round goes half to even; ``nodes``, every axis on a grid
+    node; ``outside``, one off each of the six faces, the others inside."""
+    rng = np.random.default_rng(17)
+    n = np.array([8, 8, 6])
+    if kind == "inside":
+        rel = rng.uniform(0.0, n - 1, size=(6, 3))
+    elif kind == "ties":
+        rel = np.array([[0.5, 0.5, 0.5], [1.5, 2.5, 3.5], [2.5, 3.5, 1.5],
+                        [3.5, 4.5, 2.5], [5.5, 6.5, 4.5], [6.5, 1.5, 0.5]])
+    elif kind == "nodes":
+        rel = np.array([[0, 0, 0], [1, 2, 3], [3, 4, 2], [5, 6, 4], [7, 7, 5],
+                        [2, 1, 1]], dtype=np.float64)
+    else:
+        rel = rng.uniform(0.5, n - 1.5, size=(6, 3))
+        for face in range(6):
+            axis = face // 2
+            rel[face, axis] = -1.3 if face % 2 == 0 else n[axis] + 0.4
+    enu = np.array([17000.0, 25500.0, 0.0]) + 150.0 * rel
+    return torch.as_tensor(np.stack([enu[:, 1] - 25800.0, enu[:, 0] - 17400.0,
+                                     200.0 - enu[:, 2]], axis=1))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("kind", ["inside", "ties", "nodes", "outside",
+                                  "masked"])
+def test_grid_blocks_hold_across_the_stencil(host_nodekern, kind, dtype):
+    """The grid specialisation against the float64 transforms where the
+    stencil is stressed: positions inside cells, on half-cell ties (the
+    spline's second derivatives jump there, so both must round the same
+    way), on grid nodes, outside the grid off every face (the clamped
+    stencil extrapolates), and inside with the v component masked off by
+    ``live``: every block, and the rows and columns in p, to TOL.  S10,
+    unscaled, so the positions reach the stencil exactly."""
+    cfg = _storm(live=(1.0, 0.0, 1.0) if kind == "masked" else None)
+    can = canonicalize(make_problem("S10", "tempest", ts=TS, wind_model=3,
+                                    wind=cfg, device="cpu"), None)
+    v, y = _points(can, 2, seed=23)
+    Z = v[:, 1:1 + (TS + 1) * 11].view(2, TS + 1, 11)
+    pos = _storm_positions("inside" if kind == "masked" else kind)
+    Z[:, 1:, :3] = pos[torch.arange(2 * TS) % len(pos)].reshape(2, TS, 3)
+    for name, err in _compare(host_nodekern, can, v, y,
+                              nodekern.grid_field(cfg), dtype).items():
+        assert err < TOL[dtype], (name, err)
 
 
 @pytest.mark.parametrize("mod,mission,aircraft", [(s10, "S10", "tempest"),
@@ -214,36 +335,54 @@ def _on_card(nlp):
     return dataclasses.replace(nlp, inst0=nlp.inst0._replace(z_lo=fake))
 
 
+# wind -> its config: models 0-5 as WindConfig(model) gives them, model 3
+# on the demo storm grid at order 2; "3-order1" the same grid trilinear,
+# "3-gridless" model 3 without a grid
+_WINDS = {"3": lambda dt: _storm(dtype=dt),
+          "3-order1": lambda dt: _storm(order=1, dtype=dt),
+          "3-gridless": lambda dt: _storm(grid=False)}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("wind,mode,card,kernel", [
     (0, "exact", True, True), (1, "exact", True, True),
-    (2, "exact", True, False), (3, "exact", True, False),
+    (2, "exact", True, False), (3, "exact", True, True),
     (4, "exact", True, False), (5, "exact", True, False),
     (0, "reference", True, False), (1, "reference", True, False),
-    (0, "exact", False, False), (1, "exact", False, False)])
+    (0, "exact", False, False), (1, "exact", False, False),
+    ("3-order1", "exact", True, False), (3, "reference", True, False),
+    ("3-gridless", "exact", True, False), (3, "exact", False, False)])
 def test_the_kernel_path_is_chosen_from_the_problem(wind, mode, card, kernel,
                                                     dtype):
-    """Wind models 0 and 1 with exact Jacobians on CUDA tensors take K9, in
-    float32 and float64 alike; models 2-5, the frozen-wind "reference" mode
-    and CPU tensors take the transforms, raw and scaled alike; on the CPU
-    the blocks run (and the transforms give them)."""
-    cfg = WindConfig(model=wind)
-    nlp = make_problem("S10", "tempest", ts=TS, wind_model=wind, wind=cfg,
+    """Wind models 0 and 1, and model 3 on a grid at order 2, with exact
+    Jacobians on CUDA tensors take K9, in float32 and float64 alike; models
+    2, 4, 5, model 3 at order 1 or without a grid, the frozen-wind
+    "reference" mode and CPU tensors take the transforms, raw and scaled
+    alike; on the CPU the blocks run (and the transforms give them), but
+    without a grid model 3 raises there as it always did."""
+    model = 3 if str(wind).startswith("3") else wind
+    cfg = _WINDS.get(str(wind), lambda dt: WindConfig(model=wind))(dtype)
+    nlp = make_problem("S10", "tempest", ts=TS, wind_model=model, wind=cfg,
                        jacobian_mode=mode, dtype=dtype, device="cpu")
     for n in (nlp, canonicalize(nlp, "auto").nlp):
         assert closed_form_blocks(_on_card(n) if card else n) == kernel
         assert not closed_form_blocks(n)
     assert (nlp.affine_wind_model is not None) == (
         wind in (0, 1) and mode == "exact")
-    if wind != 3:   # model 3 needs a grid to evaluate
-        can = canonicalize(nlp, "auto")
-        v, y = _points(can, 2, seed=9)
-        Z, dt, _ = can.split(v)
-        Z, y = Z.to(dtype), y.to(dtype)
-        Hn, A, d = derivative_blocks(can)[0](Z, dt, y, can.nlp.inst0)
-        A2, d2 = constraint_jac_blocks(can)[0](Z, dt, can.nlp.inst0)
-        assert Hn.shape == (2, TS + 1, 12, 12) and torch.equal(A, A2)
-        assert torch.equal(d, d2)
+    assert nlp.grid_wind == (wind == 3 and mode == "exact")
+    can = canonicalize(nlp, "auto")
+    v, y = _points(can, 2, seed=9)
+    Z, dt, _ = can.split(v)
+    Z, y = Z.to(dtype), y.to(dtype)
+    if wind == "3-gridless":
+        with pytest.raises(ValueError, match="requires a WindGrid"):
+            derivative_blocks(can)[0](Z, dt, y, can.nlp.inst0)
+        return
+    can.nlp.all_defects(Z, dt)     # the wind's index tables, untransformed
+    Hn, A, d = derivative_blocks(can)[0](Z, dt, y, can.nlp.inst0)
+    A2, d2 = constraint_jac_blocks(can)[0](Z, dt, can.nlp.inst0)
+    assert Hn.shape == (2, TS + 1, 12, 12) and torch.equal(A, A2)
+    assert torch.equal(d, d2)
 
 
 def test_affine_wind_is_the_model_at_two_points():

@@ -557,21 +557,24 @@ def test_capture_with_the_recorder_on_gives_the_same_graph(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("model", [1, 3])
+@pytest.mark.parametrize("model", [1, 3, "3-order1"])
 def test_node_block_counters_name_the_path_on_the_card(cuda_device, model):
     """float32 S10 at ts=8 on the card, 3 eager endgame steps of 2 lanes:
-    wind model 1 takes the kernel K9 for every node block (B (T+1) nodes a
-    ``kkt_prepare``, B T a dual refinement) and model 3 the transforms; the
-    recorder on gives the bits of the recorder off."""
+    wind model 1, and model 3 on the demo storm grid at order 2, take the
+    kernel K9 for every node block (B (T+1) nodes a ``kkt_prepare``, B T a
+    dual refinement) and model 3 at order 1 the transforms; the recorder on
+    gives the bits of the recorder off."""
     from tol_tpu_torch.io.storm import make_demo_storm_grid
 
     wind = None
-    if model == 3:
+    if model != 1:
         grid = make_demo_storm_grid(dtype=torch.float32, device=cuda_device)
         wind = WindConfig(model=3, grid=grid,
-                          order=2, interp="separable", east0=17400.0,
+                          order=1 if model == "3-order1" else 2,
+                          interp="separable", east0=17400.0,
                           north0=25800.0, up0=200.0)
-    can = canonicalize(make_problem("S10", "tempest", ts=TS, wind_model=model,
+    can = canonicalize(make_problem("S10", "tempest", ts=TS,
+                                    wind_model=1 if model == 1 else 3,
                                     wind=wind, dtype=torch.float32,
                                     device=cuda_device), scaling="auto")
     steps = 3
@@ -580,7 +583,7 @@ def test_node_block_counters_name_the_path_on_the_card(cuda_device, model):
         on = _endgame(can, steps, cuda_device, "eager")
     for k in alm.ALMState._fields:
         assert torch.equal(getattr(on, k), getattr(off, k)), k
-    path = "kernel" if model == 1 else "transforms"
+    path = "transforms" if model == "3-order1" else "kernel"
     assert {k: n for k, n in rec.counters.items()
             if k.startswith("kkt.node_blocks")} == {
         f"kkt.node_blocks.{path}": steps * 2 * ((TS + 1) + TS)}

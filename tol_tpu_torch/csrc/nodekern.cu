@@ -10,7 +10,12 @@
 //   node_blocks    Hn (12, 12), A (8, 11), d (8) of every node
 //   defect_blocks  A, d alone (the dual refinement's Jacobian)
 // in float, and as node_blocks_f64 / defect_blocks_f64 in double (a
-// float64 problem on the card takes the same path).
+// float64 problem on the card takes the same path).  Under the gridded
+// storm field (wind model 3 at order 2) node_blocks_grid and
+// defect_blocks_grid (and their _f64) give the same blocks with the
+// quadratic B-spline's W, grad W and their derivatives taken in closed form
+// from the 27-node stencil inside the per-node routine; the grid is read
+// from the device at every launch.
 //
 // What bounds it on an H100: the stores.  A node reads 11 + 1 + 8 floats
 // and writes 240 (96 without Hn), against a few thousand floating-point
@@ -22,6 +27,16 @@
 // rows fall on distinct banks), then the block's threads copy each output's rows out in order:
 // consecutive threads store consecutive addresses, and a block's rows are
 // one contiguous run of Hn (and of A and d).
+//
+// Under the grid a node also reads its 27-node stencil of each component
+// (81 float32 samples, from L1: the grid is a few KB) and does about 9.5 k
+// operations against the affine routine's 6.4 k, over jets of 8 variables:
+// still bound by the stores (about 4.0 us) but in practice by the latency
+// of one thread's long dependent chain, since 12928 nodes fill only about
+// 3 warps of an SM.  The grid keeps the affine launch shape (one node a
+// thread, the same staging and copy-out) and the full 255 registers a
+// thread that __launch_bounds__(32) leaves it: fewer threads a block or
+// more a node would not add warps an SM at this node count.
 //
 // Each entry point launches on the given stream, allocates nothing and
 // returns cudaGetLastError() (0 on success).
@@ -50,12 +65,12 @@ __device__ __forceinline__ void copy_rows(const T* s, int ld, int off,
 
 // One node per thread (nk::node_at: node g of B * npl), staged in shared
 // memory; then the block's rows of Hn (H only), A and d are copied out.
-template <typename T, bool H>
+template <typename T, bool H, typename Fld>
 __device__ __forceinline__ void blocks(const T* __restrict__ Z, long ldz,
                                        const T* __restrict__ dt, long lddt,
                                        const T* __restrict__ Y, long ldy,
                                        const T* __restrict__ par,
-                                       const nk::Field<T>& F, long B, int npl,
+                                       const Fld& F, long B, int npl,
                                        int Tn, T* __restrict__ Hn,
                                        T* __restrict__ A, T* __restrict__ d) {
   constexpr int NN = kNodes<T>;
@@ -84,22 +99,23 @@ __device__ __forceinline__ void blocks(const T* __restrict__ Z, long ldz,
   copy_rows(s, LD, off + nk::A_FLOATS, nk::D_FLOATS, n, d + g0 * nk::D_FLOATS);
 }
 
-template <typename T>
+// Fld: nk::Field<T> (affine wind) or nk::Grid<T> (the gridded field)
+template <typename T, typename Fld>
 __global__ void __launch_bounds__(kNodes<T>)
     node_blocks_kernel(const T* __restrict__ Z, long ldz,
                        const T* __restrict__ dt, long lddt,
                        const T* __restrict__ Y, long ldy,
-                       const T* __restrict__ par, nk::Field<T> F, long B,
+                       const T* __restrict__ par, Fld F, long B,
                        int npl, int Tn, T* __restrict__ Hn, T* __restrict__ A,
                        T* __restrict__ d) {
   blocks<T, true>(Z, ldz, dt, lddt, Y, ldy, par, F, B, npl, Tn, Hn, A, d);
 }
 
-template <typename T>
+template <typename T, typename Fld>
 __global__ void __launch_bounds__(kNodes<T>)
     defect_blocks_kernel(const T* __restrict__ Z, long ldz,
                          const T* __restrict__ dt, long lddt,
-                         const T* __restrict__ par, nk::Field<T> F, long B,
+                         const T* __restrict__ par, Fld F, long B,
                          int Tn, T* __restrict__ A, T* __restrict__ d) {
   blocks<T, false>(Z, ldz, dt, lddt, nullptr, 0, par, F, B, Tn, Tn, nullptr,
                    A, d);
@@ -107,26 +123,24 @@ __global__ void __launch_bounds__(kNodes<T>)
 
 int grid(long N, int nodes) { return (int)((N + nodes - 1) / nodes); }
 
-template <typename T>
+template <typename T, typename Fld>
 int launch_node(const T* Z, long ldz, const T* dt, long lddt, const T* Y,
-                long ldy, const T* par, const double* field, long B, int npl,
+                long ldy, const T* par, const Fld& F, long B, int npl,
                 int Tn, T* Hn, T* A, T* d, void* stream) {
   if (B * npl <= 0) return (int)cudaSuccess;
-  node_blocks_kernel<T><<<grid(B * npl, kNodes<T>), kNodes<T>, 0,
-                          (cudaStream_t)stream>>>(
-      Z, ldz, dt, lddt, Y, ldy, par, nk::make_field<T>(field), B, npl, Tn, Hn,
-      A, d);
+  node_blocks_kernel<T, Fld><<<grid(B * npl, kNodes<T>), kNodes<T>, 0,
+                               (cudaStream_t)stream>>>(
+      Z, ldz, dt, lddt, Y, ldy, par, F, B, npl, Tn, Hn, A, d);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename Fld>
 int launch_defect(const T* Z, long ldz, const T* dt, long lddt, const T* par,
-                  const double* field, long B, int Tn, T* A, T* d,
-                  void* stream) {
+                  const Fld& F, long B, int Tn, T* A, T* d, void* stream) {
   if (B * Tn <= 0) return (int)cudaSuccess;
-  defect_blocks_kernel<T><<<grid(B * Tn, kNodes<T>), kNodes<T>, 0,
-                            (cudaStream_t)stream>>>(
-      Z, ldz, dt, lddt, par, nk::make_field<T>(field), B, Tn, A, d);
+  defect_blocks_kernel<T, Fld><<<grid(B * Tn, kNodes<T>), kNodes<T>, 0,
+                                 (cudaStream_t)stream>>>(
+      Z, ldz, dt, lddt, par, F, B, Tn, A, d);
   return (int)cudaGetLastError();
 }
 
@@ -142,16 +156,18 @@ int node_blocks(const float* Z, long ldz, const float* dt, long lddt,
                 const float* Y, long ldy, const float* par,
                 const double* field, long B, int npl, int T, float* Hn,
                 float* A, float* d, void* stream) {
-  return launch_node(Z, ldz, dt, lddt, Y, ldy, par, field, B, npl, T, Hn, A,
-                     d, stream);
+  return launch_node(Z, ldz, dt, lddt, Y, ldy, par,
+                     nk::make_field<float>(field), B, npl, T, Hn, A, d,
+                     stream);
 }
 
 int node_blocks_f64(const double* Z, long ldz, const double* dt, long lddt,
                     const double* Y, long ldy, const double* par,
                     const double* field, long B, int npl, int T, double* Hn,
                     double* A, double* d, void* stream) {
-  return launch_node(Z, ldz, dt, lddt, Y, ldy, par, field, B, npl, T, Hn, A,
-                     d, stream);
+  return launch_node(Z, ldz, dt, lddt, Y, ldy, par,
+                     nk::make_field<double>(field), B, npl, T, Hn, A, d,
+                     stream);
 }
 
 // A (B * T, 8, 11), d (B * T, 8) of the first T nodes of each lane;
@@ -159,13 +175,69 @@ int node_blocks_f64(const double* Z, long ldz, const double* dt, long lddt,
 int defect_blocks(const float* Z, long ldz, const float* dt, long lddt,
                   const float* par, const double* field, long B, int T,
                   float* A, float* d, void* stream) {
-  return launch_defect(Z, ldz, dt, lddt, par, field, B, T, A, d, stream);
+  return launch_defect(Z, ldz, dt, lddt, par, nk::make_field<float>(field), B,
+                       T, A, d, stream);
 }
 
 int defect_blocks_f64(const double* Z, long ldz, const double* dt, long lddt,
                       const double* par, const double* field, long B, int T,
                       double* A, double* d, void* stream) {
-  return launch_defect(Z, ldz, dt, lddt, par, field, B, T, A, d, stream);
+  return launch_defect(Z, ldz, dt, lddt, par, nk::make_field<double>(field),
+                       B, T, A, d, stream);
+}
+
+// The same under the gridded field: consts = rho, grav, east0, north0, up0
+// as host doubles; u, v, w the float32 samples (nx, ny, nz) on the device,
+// origin and spacing (3) in the entry point's type, live (3) float32.
+int node_blocks_grid(const float* Z, long ldz, const float* dt, long lddt,
+                     const float* Y, long ldy, const float* par,
+                     const double* consts, const float* u, const float* v,
+                     const float* w, const float* origin,
+                     const float* spacing, const float* live, int nx, int ny,
+                     int nz, long B, int npl, int T, float* Hn, float* A,
+                     float* d, void* stream) {
+  return launch_node(Z, ldz, dt, lddt, Y, ldy, par,
+                     nk::make_grid<float>(consts, u, v, w, origin, spacing,
+                                          live, nx, ny, nz),
+                     B, npl, T, Hn, A, d, stream);
+}
+
+int node_blocks_grid_f64(const double* Z, long ldz, const double* dt,
+                         long lddt, const double* Y, long ldy,
+                         const double* par, const double* consts,
+                         const float* u, const float* v, const float* w,
+                         const double* origin, const double* spacing,
+                         const float* live, int nx, int ny, int nz, long B,
+                         int npl, int T, double* Hn, double* A, double* d,
+                         void* stream) {
+  return launch_node(Z, ldz, dt, lddt, Y, ldy, par,
+                     nk::make_grid<double>(consts, u, v, w, origin, spacing,
+                                           live, nx, ny, nz),
+                     B, npl, T, Hn, A, d, stream);
+}
+
+int defect_blocks_grid(const float* Z, long ldz, const float* dt, long lddt,
+                       const float* par, const double* consts,
+                       const float* u, const float* v, const float* w,
+                       const float* origin, const float* spacing,
+                       const float* live, int nx, int ny, int nz, long B,
+                       int T, float* A, float* d, void* stream) {
+  return launch_defect(Z, ldz, dt, lddt, par,
+                       nk::make_grid<float>(consts, u, v, w, origin, spacing,
+                                            live, nx, ny, nz),
+                       B, T, A, d, stream);
+}
+
+int defect_blocks_grid_f64(const double* Z, long ldz, const double* dt,
+                           long lddt, const double* par, const double* consts,
+                           const float* u, const float* v, const float* w,
+                           const double* origin, const double* spacing,
+                           const float* live, int nx, int ny, int nz, long B,
+                           int T, double* A, double* d, void* stream) {
+  return launch_defect(Z, ldz, dt, lddt, par,
+                       nk::make_grid<double>(consts, u, v, w, origin, spacing,
+                                             live, nx, ny, nz),
+                       B, T, A, d, stream);
 }
 
 const char* kernel_error_string(int code) {

@@ -47,6 +47,14 @@ _SIGNATURES = {
         "node_blocks_f64": [_P, _L] * 3 + [_P, _P, _L, _I, _I] + [_P] * 4,
         "defect_blocks": [_P, _L] * 2 + [_P, _P, _L, _I] + [_P] * 3,
         "defect_blocks_f64": [_P, _L] * 2 + [_P, _P, _L, _I] + [_P] * 3,
+        "node_blocks_grid": [_P, _L] * 3 + [_P] * 8 + [_I] * 3
+                            + [_L, _I, _I] + [_P] * 4,
+        "node_blocks_grid_f64": [_P, _L] * 3 + [_P] * 8 + [_I] * 3
+                                + [_L, _I, _I] + [_P] * 4,
+        "defect_blocks_grid": [_P, _L] * 2 + [_P] * 8 + [_I] * 3
+                              + [_L, _I] + [_P] * 3,
+        "defect_blocks_grid_f64": [_P, _L] * 2 + [_P] * 8 + [_I] * 3
+                                  + [_L, _I] + [_P] * 3,
     },
 }
 

@@ -1,10 +1,12 @@
 """The collocation node blocks in closed form, by the CUDA kernel K9
 (``csrc/nodekern.cu``).
 
-Under a wind field affine in position (wind models 0 and 1), the per-node
-derivative blocks of the collocation NLP that the solver otherwise takes by
-``torch.func`` transforms (``solver/canonical.py`` ``constraint_jac_blocks``,
-``solver/kkt_condensed.py`` ``derivative_blocks``) have a closed form:
+Under a wind field affine in position (wind models 0 and 1), and under the
+gridded storm field's quadratic B-spline (wind model 3 at order 2), the
+per-node derivative blocks of the collocation NLP that the solver otherwise
+takes by ``torch.func`` transforms (``solver/canonical.py``
+``constraint_jac_blocks``, ``solver/kkt_condensed.py`` ``derivative_blocks``)
+have a closed form:
 
     Hn (12, 12)  the Hessian over [z_i, dt] of y_i . defect(z_i, 0, dt)
     A  (8, 11)   d defect_i / d z_i
@@ -12,7 +14,7 @@ derivative blocks of the collocation NLP that the solver otherwise takes by
 
 in the scaled NLP's variables.  :func:`node_blocks` writes all three for
 every node of every lane in one launch, :func:`defect_blocks` A and d
-alone.  Those two callers choose between the kernel and the transforms;
+alone; the wind is either :func:`field` (affine) or :func:`grid_field`.  Those two callers choose between the kernel and the transforms;
 this module takes CUDA tensors only, float32 or float64 (its arithmetic is
 held to the transforms on the CPU through a host build of
 ``csrc/nodekern_block.cuh``, ``tests/test_torch_nodekern.py``).  Each
@@ -22,6 +24,7 @@ wrapper counts its launches in ``<wrapper>.launches``.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -51,8 +54,61 @@ def field(W0, G) -> ctypes.Array:
     return (ctypes.c_double * len(c))(*c)
 
 
+class GridField(NamedTuple):
+    """The launch's wind under the gridded field: ``consts`` the host
+    doubles air density, gravity, east0, north0, up0; the rest the
+    ``WindGrid``'s device tensors, read at every launch (so a captured graph
+    follows a grid refilled in place)."""
+
+    consts: ctypes.Array
+    u: torch.Tensor
+    v: torch.Tensor
+    w: torch.Tensor
+    origin: torch.Tensor
+    spacing: torch.Tensor
+    live: torch.Tensor
+
+
+def grid_field(cfg) -> GridField:
+    """The launch's wind for ``cfg`` (a WindConfig of wind model 3 at order
+    2 with its grid): the quadratic B-spline over ``cfg.grid``, as
+    ``models/wind.py`` evaluates it."""
+    g = cfg.grid
+    c = np.array([RHO, GRAVITY, cfg.east0, cfg.north0, cfg.up0],
+                 dtype=np.float64)
+    return GridField((ctypes.c_double * len(c))(*c), g.u, g.v, g.w,
+                     g.origin, g.spacing, g.live)
+
+
 # dtype -> the suffix of its entry points
 _ENTRY = {torch.float32: "", torch.float64: "_f64"}
+
+
+def _wind_args(name, fld, Z):
+    """(entry point suffix, its wind arguments) for ``fld`` from
+    :func:`field` or :func:`grid_field`.  The grid's origin and spacing go
+    to the kernel in the nodes' dtype (a cast on the device where they
+    differ), the samples and live mask as float32."""
+    if not isinstance(fld, GridField):
+        return "", (fld,)
+    shape = fld.u.shape
+    if (len(shape) != 3 or min(shape) < 3
+            or any(t.shape != shape or t.dtype != torch.float32
+                   or not t.is_contiguous() or t.device != Z.device
+                   for t in (fld.u, fld.v, fld.w))):
+        raise ValueError(f"{name}: grid samples u, v, w (nx, ny, nz), every "
+                         "axis >= 3, float32, contiguous, on the nodes' "
+                         "device")
+    origin = fld.origin.to(Z.dtype).contiguous()
+    spacing = fld.spacing.to(Z.dtype).contiguous()
+    live = fld.live.to(torch.float32).contiguous()
+    for t in (origin, spacing, live):
+        if t.shape != (3,) or t.device != Z.device:
+            raise ValueError(f"{name}: grid origin, spacing, live (3,) on "
+                             "the nodes' device")
+    return "_grid", (fld.consts, fld.u.data_ptr(), fld.v.data_ptr(),
+                     fld.w.data_ptr(), origin.data_ptr(), spacing.data_ptr(),
+                     live.data_ptr(), *shape)
 
 
 def _check(name, Z, dt, par, T):
@@ -82,8 +138,9 @@ def node_blocks(Z, dt, y, par, fld):
     """K9 over every node.  ``Z`` (B, T+1, 11) node points (node stride
     11, any lane stride: a view into v), ``dt`` (B,), ``y`` (B, T, 8) defect
     multipliers (node T takes none), ``par`` from :func:`params`, ``fld``
-    from :func:`field` -> Hn (B, T+1, 12, 12), A (B, T+1, 8, 11), d
-    (B, T+1, 8); node T's A and d are those of a defect it does not have."""
+    from :func:`field` or :func:`grid_field` -> Hn (B, T+1, 12, 12), A
+    (B, T+1, 8, 11), d (B, T+1, 8); node T's A and d are those of a defect
+    it does not have."""
     B, T = Z.shape[0], Z.shape[1] - 1
     _check("node_blocks", Z, dt, par, T)
     if (y.dtype != Z.dtype or y.device != Z.device or y.shape != (B, T, NS)
@@ -92,11 +149,12 @@ def node_blocks(Z, dt, y, par, fld):
                          f"got {tuple(y.shape)}, {tuple(y.stride())}")
     new = lambda *s: torch.empty(B, T + 1, *s, dtype=Z.dtype, device=Z.device)
     Hn, A, d = new(NV + 1, NV + 1), new(NS, NV), new(NS)
+    kind, wind = _wind_args("node_blocks", fld, Z)
     lib = _build.load_library("nodekern")
-    entry = getattr(lib, "node_blocks" + _ENTRY[Z.dtype])
+    entry = getattr(lib, "node_blocks" + kind + _ENTRY[Z.dtype])
     code = entry(Z.data_ptr(), Z.stride(0), dt.data_ptr(), dt.stride(0),
-                 y.data_ptr(), y.stride(0), par.data_ptr(), fld, B, T + 1, T,
-                 Hn.data_ptr(), A.data_ptr(), d.data_ptr(), _stream(Z))
+                 y.data_ptr(), y.stride(0), par.data_ptr(), *wind, B, T + 1,
+                 T, Hn.data_ptr(), A.data_ptr(), d.data_ptr(), _stream(Z))
     node_blocks.launches += 1
     _build.check(lib, code, "node_blocks")
     return Hn, A, d
@@ -110,10 +168,11 @@ def defect_blocks(Z, dt, par, fld):
     _check("defect_blocks", Z, dt, par, T)
     A = torch.empty(B, T, NS, NV, dtype=Z.dtype, device=Z.device)
     d = torch.empty(B, T, NS, dtype=Z.dtype, device=Z.device)
+    kind, wind = _wind_args("defect_blocks", fld, Z)
     lib = _build.load_library("nodekern")
-    entry = getattr(lib, "defect_blocks" + _ENTRY[Z.dtype])
+    entry = getattr(lib, "defect_blocks" + kind + _ENTRY[Z.dtype])
     code = entry(Z.data_ptr(), Z.stride(0), dt.data_ptr(), dt.stride(0),
-                 par.data_ptr(), fld, B, T, A.data_ptr(), d.data_ptr(),
+                 par.data_ptr(), *wind, B, T, A.data_ptr(), d.data_ptr(),
                  _stream(Z))
     defect_blocks.launches += 1
     _build.check(lib, code, "defect_blocks")

@@ -9,8 +9,9 @@
 Every function works on the last axis (nodes ``(..., 11)``, ``dt`` of the
 leading shape), so one call covers a whole batch of lanes; the per-node
 derivatives in the solver come from ``torch.func`` over the same functions,
-or, under a wind affine in position on the card, from the closed form of
-``ops/nodekern.py`` (``solver/canonical.closed_form_blocks``).
+or, on the card under a wind affine in position or the gridded storm field at
+order 2, from the closed form of ``ops/nodekern.py``
+(``solver/canonical.closed_form_blocks``).
 """
 
 from __future__ import annotations
@@ -118,11 +119,13 @@ class CollocationNLP:
     defect_fn: Callable
     boundary_fn: Callable
     # What the closed-form node blocks (ops/nodekern.py) read: the Hessian
-    # of node_cost in z, (..., 11) -> (..., 11, 11), and the wind model
-    # where the defect's field is affine in position and its Jacobians
-    # exact (else None).
+    # of node_cost in z, (..., 11) -> (..., 11, 11); the wind model where
+    # the defect's field is affine in position and its Jacobians exact
+    # (else None); and whether it is the gridded field (wind model 3) at
+    # order 2 with exact Jacobians, which the kernel evaluates itself.
     node_cost_hess_fn: Callable
     affine_wind_model: int | None = None
+    grid_wind: bool = False
 
     def _inst(self, inst):
         return self.inst0 if inst is None else inst
@@ -182,6 +185,16 @@ class CollocationNLP:
                          dim=-1)
 
 
+def _grid_in_closed_form(grid, dtype) -> bool:
+    """Whether K9 evaluates ``grid`` (a WindGrid or None) as the transforms
+    do for a problem in ``dtype``: a grid with every axis of at least three
+    nodes (so the clamped stencil stays inside it) whose origin and spacing
+    do not promote the problem's dtype."""
+    return (grid is not None and min(grid.u.shape) >= 3
+            and all(torch.promote_types(t.dtype, dtype) == dtype
+                    for t in (grid.origin, grid.spacing)))
+
+
 def make_instance(cfg: ProblemConfig, goal: Goal, wind: WindConfig,
                   start_ned=(0.0, 0.0, 0.0), dtype=torch.float64,
                   stitch: StitchState | None = None, device=None) -> Instance:
@@ -215,6 +228,8 @@ def build_nlp(cfg: ProblemConfig, goal: Goal, wind: WindConfig,
     freeze_wind = cfg.jacobian_mode == "reference"
     wind_model = int(wind.model)
     affine = wind_model in AFFINE_MODELS and not freeze_wind
+    grid = (wind_model == 3 and not freeze_wind and int(wind.order) == 2
+            and _grid_in_closed_form(wind.grid, dtype))
 
     def defect(z_i, z_ip1, dt, inst):
         """Forward-Euler defect rows; ``dt`` has the nodes' leading shape.
@@ -241,6 +256,7 @@ def build_nlp(cfg: ProblemConfig, goal: Goal, wind: WindConfig,
         defect_fn=defect, boundary_fn=boundary,
         node_cost_hess_fn=mod.node_cost_hess,
         affine_wind_model=wind_model if affine else None,
+        grid_wind=grid,
     )
 
 

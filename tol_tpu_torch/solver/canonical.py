@@ -288,26 +288,35 @@ def canonicalize(nlp: CollocationNLP,
 def closed_form_blocks(nlp: CollocationNLP) -> bool:
     """Whether the collocation node blocks of ``nlp`` go through the kernel
     K9 (``ops/nodekern.py``) and not the ``torch.func`` transforms: its
-    wind is affine in position and its Jacobians exact
-    (``affine_wind_model``), and its tensors live on CUDA.  A solver decides
-    once, when it is built."""
-    return (nlp.affine_wind_model is not None
+    Jacobians are exact and its wind affine in position
+    (``affine_wind_model``) or the gridded field at order 2
+    (``grid_wind``), and its tensors live on CUDA.  A solver decides once,
+    when it is built."""
+    return ((nlp.affine_wind_model is not None or nlp.grid_wind)
             and nlp.inst0.z_lo.device.type == "cuda")
 
 
 def kernel_args(can: CanonicalNLP):
     """``args(inst) -> (par, field)``, what a K9 launch on ``can.nlp`` reads
     beside the nodes: the airframe and the variable scales (``can.scaling``,
-    all 1 unscaled) on the device, the air, gravity and the affine wind
-    (``models/wind.affine_wind``) on the host."""
+    all 1 unscaled) on the device; the air, gravity and the affine wind
+    (``models/wind.affine_wind``) on the host, or under the gridded field
+    the Instance's grid on the device (``nodekern.grid_field``)."""
     sc = can.scaling if can.scaling is not None else unit_scaling(can.nlp)
     d_z, d_dt = sc.d_z, sc.d_dt
     model = can.nlp.affine_wind_model
 
+    def wind(inst):
+        if model is not None:
+            return nodekern.field(*affine_wind(dataclasses.replace(
+                inst.wind, model=model)))
+        if int(inst.wind.order) != 2 or inst.wind.grid is None:
+            raise ValueError("the problem was built for the gridded field "
+                             "at order 2; the Instance's wind is not")
+        return nodekern.grid_field(inst.wind)
+
     def args(inst):
-        W0, G = affine_wind(dataclasses.replace(inst.wind, model=model))
-        return (nodekern.params(inst.aircraft, d_z, d_dt),
-                nodekern.field(W0, G))
+        return nodekern.params(inst.aircraft, d_z, d_dt), wind(inst)
     return args
 
 

@@ -14,7 +14,8 @@ refinement of the endgame (``dual_refine_k`` = 4, the Jacobian's blocks and
 the CG over them) at the same point.
 
 The node blocks run by the ``torch.func`` transforms here; on the card,
-under wind models 0 and 1, one launch of the kernel K9 takes their place
+under wind models 0 and 1 and the storm's grid at order 2, one launch of
+the kernel K9 takes their place
 (``ops/nodekern.py``).  ``node_blocks`` counts the transforms' operations
 inside every KKT count above (``kkt_prepare``'s node Hessians and defect
 Jacobians), ``defect_jac`` those inside ``dual_refine``; beside each launch
