@@ -183,22 +183,59 @@ class BatchSystem:
         return {"dive": dive, "endgame": endgame, "drain": drain}
 
 
+def mission_wind(wind: dict) -> dict:
+    """The configuration's ``wind`` as MissionConfig fields: each key ``k``
+    as the field ``wind_<k>``; a key with no such field only at
+    WindConfig's default (else ValueError, naming the key).  A ``grid``
+    (wind model 3) is not built here: the mission layer re-reads it from
+    a TOLWGRID file before every leg (``wind_grid_path`` and
+    ``wind_refresh``, which the caller adds)."""
+    import dataclasses
+
+    from tol_tpu_torch.mission.mission import MissionConfig
+    from tol_tpu_torch.models.wind import WindConfig
+
+    fields = {f.name for f in dataclasses.fields(MissionConfig)}
+    defaults = {f.name: f.default for f in dataclasses.fields(WindConfig)}
+    w = dict(wind)
+    if "grid" in w and w.get("model") != 3:
+        raise ValueError(f"a wind grid is wind model 3, not {w.get('model')!r}")
+    w.pop("grid", None)
+    out = {}
+    for k, v in w.items():
+        if "wind_" + k in fields:
+            out["wind_" + k] = v
+        elif k not in defaults or v != defaults[k]:
+            raise ValueError(f"the mission layer has no field wind_{k} for the "
+                             f"wind's {k!r} = {v!r}")
+    return out
+
+
 class LegSystem:
     """The mission layer's leg solver (seed ensemble in slices, warm
-    cache, stitch)."""
+    cache, stitch).  For a gridded wind the system owns a TOLWGRID file,
+    ``grid_path``, which the mission layer re-reads before every leg; the
+    request kind writes the field there."""
 
     def __init__(self, cfg: dict, device):
+        import tempfile
+        import weakref
+
         from tol_tpu_torch.mission.mission import MissionConfig, default_leg_solver
 
         self.device = torch.device(device)
         dtype = DTYPES[cfg["dtype"]] if self.device.type == "cuda" else torch.float64
         ml = cfg["mission_layer"]
         self.mission = cfg["mission"]
-        wind = wind_config(cfg, dtype, self.device)
-        if wind != type(wind)(model=wind.model):
-            raise ValueError("the mission layer takes a wind model's defaults only")
+        wind = mission_wind(cfg["wind"])
+        self.grid_path = None
+        if "grid" in cfg["wind"]:
+            fd, self.grid_path = tempfile.mkstemp(suffix=".TOLWGRID")
+            os.close(fd)
+            self._remove = weakref.finalize(self, os.remove, self.grid_path)
+            wind.update(wind_grid_path=self.grid_path, wind_refresh=True)
         self.solve_leg = default_leg_solver(MissionConfig(
-            aircraft=cfg["aircraft"], ts=cfg["ts"], wind_model=wind.model,
+            aircraft=cfg["aircraft"], ts=cfg["ts"], **wind,
             leg_max_iter=ml["leg_max_iter"], leg_ensemble=ml["ensemble"],
             leg_chain=ml["chain"], leg_chunk=ml["slice"], leg_tol=ml["tol"],
             leg_feas_tol=ml["feas_tol"], device=str(self.device), dtype=dtype))

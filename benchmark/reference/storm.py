@@ -31,8 +31,10 @@ Departures from the upstream's model 3 (lingaqing/tol ``src/problem.cpp``
 (``straka.t000000_f5700``), which is not in the repository; order 2 where
 the upstream is trilinear (trilinear's cell-face kinks leave the NLP
 without pointwise stationarity); all three components live where the
-upstream interpolates v alone; one fixed grid where the upstream caches a
-box of nodes around the aircraft.
+upstream interpolates v alone, unless the configuration's ``live`` masks
+them (a leg of the mission layer reads its field from a TOLWGRID file,
+v alone live, as the upstream does); one fixed grid a solve where the
+upstream caches a box of nodes around the aircraft.
 """
 
 from __future__ import annotations
@@ -56,6 +58,9 @@ split = _col.split
 judge_scaled = _col.judge_scaled
 golden_cost = _col.golden_cost
 certificate = _col.certificate
+# collocation.py's judges in physical units, which the mission kind calls
+judge_physical = _col.judge_physical
+certificate_physical = _col.certificate_physical
 
 DEMO_BUILDER = "tol_tpu_torch.io.storm:make_demo_storm_grid"
 SENTINEL = -32768.0
@@ -101,9 +106,11 @@ def demo_field(nx=8, ny=8, nz=6, spacing=150.0, origin=(17000.0, 25500.0, 0.0),
 
 class StormWind:
     """Wind model 3 from a configuration's ``wind``: ``order`` 1 or 2, the
-    datum ``east0``, ``north0``, ``up0``, and ``grid`` naming the demo
-    field's builder and its ``args``.  ``interp`` names one of the
-    program's lowerings; this reference uses none of them."""
+    datum ``east0``, ``north0``, ``up0``, ``grid`` naming the demo
+    field's builder and its ``args``, and ``live``, a mask over the
+    components (u, v, w), all three by default: a masked component and
+    its gradient are zero.  ``interp`` names one of the program's
+    lowerings; this reference uses none of them."""
 
     def __init__(self, wind: dict):
         w = dict(wind)
@@ -117,6 +124,9 @@ class StormWind:
         if self.order not in (1, 2):
             raise ValueError(f"unsupported interpolation order {self.order}")
         w.pop("interp", None)
+        live = torch.as_tensor(w.pop("live", (1.0, 1.0, 1.0)), dtype=F64)
+        if live.shape != (3,):
+            raise ValueError(f"live {live.tolist()}: one entry a component")
         datum = {**DATUM, **w}
         if set(datum) != set(DATUM):
             raise NotImplementedError(f"wind keys {sorted(set(datum) - set(DATUM))}")
@@ -124,7 +134,7 @@ class StormWind:
                                              ("east0", "north0", "up0"))
         f = demo_field(**grid.get("args", {}))
         self.samples = torch.as_tensor(np.stack([f["u"], f["v"], f["w"]]),
-                                       dtype=F64)               # (3, nx, ny, nz)
+                                       dtype=F64) * live[:, None, None, None]
         self.origin = torch.as_tensor(f["origin"])
         self.spacing = torch.as_tensor(f["spacing"])
 

@@ -106,7 +106,8 @@ def honest(cell, ref, requests: list) -> list:
             a.update(viol=viol, f=f, gated=ok)
         else:
             prob = ref.Problem(cfg["mission"], cfg["aircraft"], goal=r["goal"],
-                               stitch=r["stitch"], ts=ts, wind=wind)
+                               stitch=r["stitch"], ts=ts,
+                               wind=kind(cell).leg_wind(cfg, r))
             J = ref.judge_physical(prob, sc, a["Z"], a["dt"])
             a.update(F=float(J["F"]), converged=bool(a["converged"]) and float(
                 J["viol"]) <= cfg["mission_layer"]["feas_tol"])

@@ -14,7 +14,12 @@ from harness.spec import kind, load_cell
 from tiny import SHELVED, any_cell
 
 batch_noise = kind(load_cell("s10_batch")).batch_noise
-leg_goals = kind(load_cell("g7_replan")).leg_goals
+MISSION = kind(load_cell("g7_replan"))
+
+
+def leg_goals(seed, tr):
+    """The goals of :func:`cycle_legs`' stream of ``(k, goal)``."""
+    return (goal for _, goal in MISSION.cycle_legs(seed, tr))
 
 BIG = 2 ** 31 + 12345
 
@@ -39,6 +44,10 @@ def test_leg_goals_repeat_and_stay_in_the_mix():
     n = tr["cycle"]
     a = list(itertools.islice(leg_goals(BIG, tr), 3 * n))
     assert a == list(itertools.islice(leg_goals(BIG, tr), 3 * n))
+    # the index of each goal runs round the cycle from the seed's first
+    k0 = MISSION.first_goal(BIG, tr)
+    ks = [k for k, _ in itertools.islice(MISSION.cycle_legs(BIG, tr), 3 * n)]
+    assert ks == [(k0 + i) % n for i in range(3 * n)]
     assert a[:n] == a[n:2 * n] and len(set(a[:n])) == n
     for xg, yg, zg, rg in a:
         bearing = math.degrees(math.atan2(yg, xg))
@@ -82,7 +91,7 @@ def test_cost_gate_holds_on_the_goldens_airframe_alone():
         [True, True, False, False]
 
 
-@pytest.mark.parametrize("workload", ["s10_batch", "g7_replan"]
+@pytest.mark.parametrize("workload", ["s10_batch", "g7_replan", "storm_batch", "g7_batch"]
                          + [w["name"] for w in SHELVED])
 def test_a_window_is_a_fixed_count_of_requests(workload):
     spec = json.load(open(os.path.join(os.path.dirname(run.BENCH), "BENCHMARK.json")))
@@ -93,8 +102,8 @@ def test_a_window_is_a_fixed_count_of_requests(workload):
     assert n == round(spec["run_seconds"] / per) and n >= 1
     assert abs(n * per - spec["run_seconds"]) <= per / 2
     if "cycle" in cell.traffic:
-        # every seed's window flies the whole cycle once, from another start
-        assert n == cell.traffic["cycle"]
+        # every seed's window flies the whole cycle twice, from another start
+        assert n == 2 * cell.traffic["cycle"]
 
 
 class _Slow:
